@@ -4,15 +4,24 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, drives the main path
-(``repro_torch.launch.headcount.run``: partition the full 5458-task THERMAL
-head count on the sweep kernel, then execute the Q_min partition under the
-burst runtime with one injected power failure, every window scored by the
-CNN kernel) and checks it against the port's CPU execution. Each phase
-prints one JSON line; the kernels line carries launches, times and bounds
-measured in this run; the last line is the device summary. Any mismatch
-raises, so the exit code is nonzero. Without a card, or without the rest of
-the repository beside it, it exits nonzero and prints no result.
+kernel against its plain PyTorch version on the card, and drives the port's
+two paths:
+
+1. the head count (``repro_torch.launch.headcount.run``: partition the full
+   5458-task THERMAL head count on the sweep kernel, then execute the Q_min
+   partition under the burst runtime with one injected power failure, every
+   window scored by the CNN kernel), checked against the port's CPU
+   execution;
+2. serving qwen3-4b at full width (``repro_torch.launch.serve.serve``: 36
+   layers, d 2560, 4,411,417,600 random parameters from a seed; batch 4 ×
+   prompt 512 × 16 tokens, then batch 1 × prompt 1000 × 8 tokens; every
+   RMSNorm and every prefill attention through the CUDA kernels), checked
+   against the plain path on the same weights.
+
+Each phase prints one JSON line; the kernels line carries launches, times
+and bounds measured in this run; the last line is the device summary. Any
+mismatch raises, so the exit code is nonzero. Without a card, or without
+the rest of the repository beside it, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -30,13 +39,31 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet, dense):
-# HBM3 bytes/s; float32 and float64 on the CUDA cores (not tensor cores).
+# HBM3 bytes/s; float32 and float64 on the CUDA cores (not tensor cores);
+# bfloat16 on the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 PEAK_F64_PER_S = 34e12
+PEAK_BF16_PER_S = 989e12
 
 CONV_TOL = 1e-5          # max |Δ| ≤ CONV_TOL · max(1, |score|)
 THERMAL_Q_MIN = 0.13196942
+# repro's own tolerances for these kernels (tests/test_kernels.py), absolute
+# and relative: |Δ| ≤ tol · (1 + |plain|). The serving kernels are also held
+# to bounds derived from rounding (rms_bound, flash_bound), far tighter at
+# the path's shapes.
+RMS_TOL = 1e-2
+FLASH_TOL = {torch.bfloat16: 0.05, torch.float32: 2e-5}
+BF16_STEP = 2.0 ** -7    # bfloat16 spacing relative to the bottom of a binade
+# Serving: qwen3-4b at full width; (batch, prompt, generated tokens).
+SERVE_ARCH = "qwen3-4b"
+SERVE_REQUESTS = ((4, 512, 16), (1, 1000, 8))
+SERVE_PARAMS = 4_411_417_600
+# Kernel path against plain path, per logits row (one sequence at one step):
+# ‖Δ‖₂ / ‖plain‖₂ at most this. It lies between the kernel path's largest
+# reading (0.045) and the control's smallest (0.159), near their geometric
+# mean (NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6).
+SERVE_REL_LIMIT = 0.085
 
 
 def emit(obj) -> None:
@@ -157,6 +184,401 @@ def sweep_modes(q_grid, n_bursts):
         ("exact_k_sum", "exact_k", (q_grid[-2],), n_bursts, "sum"),
         ("exact_k_max", "exact_k", (q_grid[-2],), n_bursts, "max"),
     ]
+
+
+# -- the serving path's kernels ----------------------------------------------
+
+# RMSNorm cases: name -> (rows, d, dtype). The first four are the serving
+# path's shapes at batch 4 × prompt 512 (ln1/ln2/final, q-norm, k-norm) and
+# in its decode steps.
+RMS_CASES = {
+    "prefill_d2560": (2048, 2560, torch.bfloat16),
+    "prefill_q_norm": (65536, 128, torch.bfloat16),
+    "prefill_k_norm": (16384, 128, torch.bfloat16),
+    "decode_d2560": (4, 2560, torch.bfloat16),
+    "odd_f32": (333, 4100, torch.float32),
+    "odd_warp_bf16": (77, 200, torch.bfloat16),
+}
+# Flash cases: name -> (B, Sq, Sk, H, KV, hd, causal, dtype).
+FLASH_CASES = {
+    "serve_b4_s512": (4, 512, 512, 32, 8, 128, True, torch.bfloat16),
+    "serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
+    "hd64": (2, 256, 256, 16, 4, 64, True, torch.bfloat16),
+    "noncausal_sk_ne_sq": (2, 100, 300, 8, 2, 128, False, torch.bfloat16),
+    "f32_serve_b4_s512": (4, 512, 512, 32, 8, 128, True, torch.float32),
+    "f32_serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.float32),
+    "f32_hd64_tail": (1, 200, 200, 8, 2, 64, True, torch.float32),
+    "f32_hd128_noncausal": (1, 40, 72, 4, 4, 128, False, torch.float32),
+}
+
+
+def _randn(gen, shape, dtype, dev, scale=1.0):
+    return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+
+def rms_inputs(case, dev, seed=0):
+    n, d, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _randn(gen, (n, d), dtype, dev, 3.0), _randn(gen, (d,), torch.float32, dev)
+
+
+def flash_inputs(case, dev, seed=0):
+    """q, k, v in the kernel's [B·KV, S, G, hd] / [B·KV, S, hd] layout."""
+    b, sq, sk, h, kv, hd, _, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (_randn(gen, (b * kv, sq, h // kv, hd), dtype, dev),
+            _randn(gen, (b * kv, sk, hd), dtype, dev), _randn(gen, (b * kv, sk, hd), dtype, dev))
+
+
+def _held(got, want, limit) -> tuple:
+    """(max |Δ|, max |Δ| / limit); raises unless ``got`` is finite and
+    |Δ| ≤ ``limit`` (a tensor like ``want``, or a number) everywhere."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    err = (got - want).abs()
+    used = float((err / limit).max().item())
+    if not bool(torch.isfinite(got).all()) or used > 1.0:
+        raise AssertionError(f"kernel off its plain version: max |Δ| {err.max().item()}, "
+                             f"{used} of the limit")
+    return float(err.max().item()), used
+
+
+def rms_bound(want, d: int):
+    """|Δ| allowed between two RMSNorms of a row of width ``d`` that differ
+    only in float32 rounding: the sums of squares in any order (d·2^-24
+    each), rsqrt within 2 ulp and the products give (d + 32)·2^-23 relative;
+    a bfloat16 output adds one bfloat16 step where the two float32 values
+    round apart, and 2^-14 for the rounding of ``want`` itself."""
+    rel = (d + 32) * 2.0 ** -23
+    if want.dtype == torch.bfloat16:
+        rel += BF16_STEP + 2.0 ** -14
+    return rel * want.to(torch.float32).abs() + 1e-6
+
+
+def flash_bound(q, k, v, want, causal: bool):
+    """|Δ| allowed between the bfloat16 flash kernel and its plain version.
+    The kernel rounds each p to bfloat16 before PV (at most 2^-8 relative)
+    and the plain version does not, so their float32 outputs differ by at
+    most 2^-8·A, A = Σ p|v| / Σ p (the plain version run on |v|), plus
+    float32 terms far below 2^-9·A; both outputs round to bfloat16, which
+    may put them one step (2^-7·|o|) apart. Bound: 2^-7·(|plain| + A)."""
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    return BF16_STEP * (want.to(torch.float32).abs() + a) + 1e-6
+
+
+def model_kernel_checks(dev):
+    """Each serving kernel against its plain version on the card: within
+    repro's tolerance and within the rounding bound (bfloat16 flash and
+    every RMSNorm); float32 flash within repro's 2e-5, also at the serving
+    shapes."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+
+    rms_err, flash_err, bound_used = {}, {}, {}
+    for name, case in RMS_CASES.items():
+        x, w = rms_inputs(case, dev)
+        got = rmsnorm_rows_cuda(x, w, 1e-6)
+        torch.cuda.synchronize()
+        want = rmsnorm_plain(x, w, 1e-6)
+        rms_err[name], _ = _held(got, want, RMS_TOL * (1 + want.float().abs()))
+        _, bound_used[f"rmsnorm_{name}"] = _held(got, want, rms_bound(want, case[1]))
+    for name, case in FLASH_CASES.items():
+        q, k, v = flash_inputs(case, dev)
+        causal, dtype = case[6], case[7]
+        got = flash_attention_bkv_cuda(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = attention_plain(q, k, v, causal=causal)
+        flash_err[name], used = _held(got, want, FLASH_TOL[dtype] * (1 + want.float().abs()))
+        if dtype == torch.bfloat16:
+            _, used = _held(got, want, flash_bound(q, k, v, want, causal))
+        bound_used[f"flash_{name}"] = used
+    emit({"phase": "serving_kernels_vs_plain_on_card", "rmsnorm_max_abs_err": rms_err,
+          "flash_max_abs_err": flash_err, "share_of_bound_used": bound_used,
+          "tolerance": "repro's |Δ| ≤ tol·(1+|plain|) (rmsnorm 1e-2; flash 0.05 bf16, "
+                       "2e-5 f32) and the rounding bounds: rmsnorm (d+32)·2^-23·|plain| "
+                       "[+ (2^-7 + 2^-14)·|plain| in bf16] + 1e-6; bf16 flash "
+                       "2^-7·(|plain| + A) + 1e-6, A = plain on |v|"})
+    return rms_err, flash_err
+
+
+def serve_path(dev):
+    """The second main path: build qwen3-4b at full width, serve both
+    requests through the kernels, count the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import api
+
+    cfg = get_config(SERVE_ARCH)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    # ModelConfig.param_count() (as in repro) leaves out the q/k-norm
+    # weights and counts 2·d for the final norm; the tensors hold d there.
+    want_params = cfg.param_count() + 2 * cfg.n_layers * cfg.hd - cfg.d_model
+    emit({"phase": "serve_model", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+          "d_model": cfg.d_model, "vocab": cfg.vocab, "param_count": cfg.param_count(),
+          "parameter_tensors_numel": n_params, "init_s": time.perf_counter() - t0,
+          "weights_gb": sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9})
+    if cfg.param_count() != SERVE_PARAMS or n_params != want_params:
+        raise AssertionError(f"qwen3-4b: param_count {cfg.param_count()}, tensors "
+                             f"{n_params}; want {SERVE_PARAMS} and {want_params}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rmsnorm_rows_cuda.launches = 0
+    flash_attention_bkv_cuda.launches = 0
+    requests = []
+    t0 = time.perf_counter()
+    for b, p, g in SERVE_REQUESTS:
+        report = {}
+        seqs = serve(SERVE_ARCH, b, p, g, seed=0, device=dev, params=params, report=report)
+        requests.append({"batch": b, "prompt": p, "gen": g, **report,
+                         "tokens_ok": bool(seqs.shape == (b, g) and seqs.min() >= 0
+                                           and seqs.max() < cfg.vocab)})
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"rmsnorm": rmsnorm_rows_cuda.launches,
+                "flash_attention": flash_attention_bkv_cuda.launches}
+    per_step = 4 * cfg.n_layers + 1
+    want = {"rmsnorm": sum(per_step * g for _, _, g in SERVE_REQUESTS),
+            "flash_attention": cfg.n_layers * len(SERVE_REQUESTS)}
+    ok = launches == want and all(r["tokens_ok"] for r in requests)
+    emit({"phase": "serve_path", "seconds": seconds, "requests": requests,
+          "launches": launches, "expected_launches": want,
+          "rmsnorm_per_step": per_step, "flash_per_prefill": cfg.n_layers,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "ok": ok})
+    if not ok:
+        raise AssertionError("serve path check failed")
+    return cfg, params, launches
+
+
+def _scaled_attention(excess: float, first: int):
+    """The plain attention with its output scaled by 1 + ``excess`` at query
+    positions from ``first`` on."""
+    def attention(q, k, v, causal):
+        from repro_torch.models.common import PLAIN
+
+        o = PLAIN.attention(q, k, v, causal)
+        scale = torch.ones(q.shape[1], device=q.device, dtype=torch.float32)
+        scale[first:] += excess
+        return (o.to(torch.float32) * scale[None, :, None, None]).to(q.dtype)
+    return attention
+
+
+def _float8_attention(q, k, v, causal):
+    """The plain attention with its output rounded to float8 e4m3."""
+    from repro_torch.models.common import PLAIN
+
+    return PLAIN.attention(q, k, v, causal).to(torch.float8_e4m3fn).to(q.dtype)
+
+
+def parity_variants():
+    """Paths read against the plain path at the prefill, beside the kernel
+    path. "control" stands for a kernel that rescales wrongly after its
+    first 64-key tile (6% off past position 64); the parity check must
+    reject it. The others show what the reading can see: each kernel
+    alone, unbiased rounding noise (float8), systematic errors of 1.6% and
+    12.5%."""
+    from repro_torch.models.common import KERNELS, PLAIN, Kernels
+
+    return {
+        "control": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -4, 64)),
+        "rmsnorm_kernel_only": Kernels(KERNELS.rmsnorm, PLAIN.attention),
+        "flash_kernel_only": Kernels(PLAIN.rmsnorm, KERNELS.attention),
+        "attention_float8": Kernels(PLAIN.rmsnorm, _float8_attention),
+        "attention_x(1+2^-6)": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -6, 0)),
+        "attention_x(1+2^-3)_past_64": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -3, 64)),
+    }
+
+
+def _row_rel(got, want):
+    """‖got − want‖₂ / ‖want‖₂ of each logits row → [rows] float32."""
+    g, w = (t.to(torch.float32).reshape(-1, t.shape[-1]) for t in (got, want))
+    return (g - w).norm(dim=-1) / w.norm(dim=-1)
+
+
+def serve_parity(cfg, params, dev):
+    """The kernel path against the plain path on the same weights: the last
+    prefill position's logits, then decode logits under teacher forcing
+    (the plain path is fed the kernel path's tokens). The reading is each
+    logits row's ‖Δ‖₂ / ‖plain‖₂; every row must stay within
+    SERVE_REL_LIMIT. The variants of :func:`parity_variants` are read at
+    the prefill; the control must exceed the limit in every row."""
+    from repro_torch.models import api
+    from repro_torch.models.common import PLAIN
+
+    variants = parity_variants()
+    out = []
+    for b, p, g in SERVE_REQUESTS:
+        gen = torch.Generator(device=dev).manual_seed(b * 7919 + p)
+        tokens = torch.randint(0, cfg.vocab, (b, p), device=dev, generator=gen)
+        kl, kc = api.prefill(cfg, params, {"tokens": tokens}, p + g)
+        pl, pc = api.prefill(cfg, params, {"tokens": tokens}, p + g, PLAIN)
+        variant_rel = {name: _row_rel(api.prefill(cfg, params, {"tokens": tokens}, p + g,
+                                                  ks)[0], pl)
+                       for name, ks in variants.items()}
+        steps = [(kl, pl)]
+        tok = kl[:, -1].argmax(dim=-1, keepdim=True)
+        for i in range(g - 1):
+            kl, kc = api.decode_step(cfg, params, kc, tok, p + i)
+            pl, pc = api.decode_step(cfg, params, pc, tok, p + i, PLAIN)
+            steps.append((kl, pl))
+            tok = kl[:, -1].argmax(dim=-1, keepdim=True)
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(k).all()) for k, _ in steps):
+            raise AssertionError("kernel path logits are not finite")
+        rel = torch.stack([_row_rel(k, w) for k, w in steps])  # [steps, batch]
+        out.append({
+            "batch": b, "prompt": p, "gen": g,
+            "row_rel_max": float(rel.max()), "row_rel_prefill_max": float(rel[0].max()),
+            "row_rel_median": float(rel.median()),
+            "control_prefill_row_rel_min": float(variant_rel["control"].min()),
+            "variants_prefill_row_rel_min_median_max": {
+                name: [float(r.min()), float(r.median()), float(r.max())]
+                for name, r in variant_rel.items()},
+            "max_abs_err": max(float((k.float() - w.float()).abs().max()) for k, w in steps),
+            "argmax_agree": sum(int((k[:, -1].argmax(-1) == w[:, -1].argmax(-1)).sum())
+                                for k, w in steps) / (b * g)})
+    sound = max(r["row_rel_max"] for r in out)
+    control_min = min(r["control_prefill_row_rel_min"] for r in out)
+    emit({"phase": "serve_kernel_vs_plain_path", "requests": out, "limit": SERVE_REL_LIMIT,
+          "reading": "per logits row ‖Δ‖₂/‖plain‖₂; variants: the plain path with one "
+                     "site changed (control: prefill attention × (1 + 2^-4) past "
+                     "position 64)"})
+    if sound > SERVE_REL_LIMIT:
+        raise AssertionError(f"kernel path off the plain path: {sound} > {SERVE_REL_LIMIT}")
+    if control_min <= SERVE_REL_LIMIT:
+        raise AssertionError(f"the control passed the parity check ({control_min} ≤ "
+                             f"{SERVE_REL_LIMIT}): the check does not discriminate")
+    return sound
+
+
+def serve_trace(cfg, params, dev):
+    """Where serving time goes: host clock of a warm prefill (the first
+    request's shape) and of one decode step after it, untraced; then the
+    card's busy time and its largest kernels from a traced run of each."""
+    from repro_torch.models import api
+
+    b, p, g = SERVE_REQUESTS[0]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (b, p), device=dev, generator=gen)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = api.prefill(cfg, params, {"tokens": tokens}, p + g)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(dim=-1, keepdim=True)
+        api.decode_step(cfg, params, state["cache"], tok, p)
+
+    out = {"phase": "serve_trace", "what": f"warm prefill b{b} x {p} and one decode step"}
+    for name, fn in (("prefill", prefill), ("decode_step", decode)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+        rows = profile_device(fn)
+        busy_s = sum(t for t, _ in rows.values()) / 1e6
+        seen = busy_s > 0  # else the profiler saw no device activity: not measured
+        out[name] = {
+            "host_s": host_s, "device_busy_s": busy_s if seen else None,
+            "idle_share": 1.0 - busy_s / host_s if seen else None,
+            "device_kernels": sum(c for _, c in rows.values()),
+            "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
+                                     key=lambda x: -x[1])[:8]}
+    emit(out)
+
+
+def _bound(nbytes, ops, peak_ops):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rmsnorm_entry(dev, launches, errs):
+    """Times and bounds of the RMSNorm kernel at the serving path's shapes;
+    the headline numbers are the [2048, 2560] prefill shape's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+
+    by_shape = {}
+    for name in ("prefill_d2560", "prefill_q_norm", "prefill_k_norm", "decode_d2560"):
+        n, d, dtype = RMS_CASES[name]
+        x, w = rms_inputs(RMS_CASES[name], dev)
+        fn = lambda: rmsnorm_rows_cuda(x, w, 1e-6)  # noqa: E731
+        ms, how = kernel_ms(fn, 20, "rmsnorm_kernel")
+        # a yardstick only: the port never calls it
+        lib = cuda_ms(lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-6), 20)
+        nbytes = 2 * n * d * x.element_size() + 4 * d
+        bound, by = _bound(nbytes, 4 * n * d, PEAK_F32_PER_S)
+        by_shape[name] = {"rows": n, "d": d, "ms": ms, "ms_from": how,
+                          "wrapper_ms": cuda_ms(fn, 20),
+                          "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, w, 1e-6), 20),
+                          "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    head = by_shape["prefill_d2560"]
+    return {
+        "name": "rmsnorm", "route": "cuda",
+        "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm/kernel.py:17",
+        "launches": launches["rmsnorm"], "max_abs_err": max(errs.values()),
+        **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "library_call": "torch.nn.functional.rms_norm (weight cast to x's dtype)",
+        "shape": "[2048, 2560] bf16 (ln1/ln2 in the b4 x 512 prefill); others below",
+        "by_shape": by_shape,
+    }
+
+
+def flash_entry(dev, launches, errs):
+    """Times and bounds of the flash kernel at the two prefill shapes; the
+    headline numbers are the b4 × 512 request's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_plain
+
+    by_shape = {}
+    for name in ("serve_b4_s512", "serve_b1_s1000"):
+        b, sq, sk, h, kv, hd, causal, _ = FLASH_CASES[name]
+        q, k, v = flash_inputs(FLASH_CASES[name], dev)
+        fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=causal)  # noqa: E731
+        ms, how = kernel_ms(fn, 10, "flash_kernel")
+        # the library call takes [B, H, S, hd]; the layout change is made
+        # once, outside the timing
+        ql = q.reshape(b, kv, sq, h // kv, hd).permute(0, 1, 3, 2, 4).reshape(b, h, sq, hd)
+        kl, vl = (t.reshape(b, kv, sk, hd) for t in (k, v))
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            ql, kl, vl, is_causal=causal, enable_gqa=True), 10)
+        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+        flops = 4 * b * h * pairs * hd
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        bound, by = _bound(nbytes, flops, PEAK_BF16_PER_S)
+        by_shape[name] = {"shape": [b, sq, sk, h, kv, hd], "flops": flops, "ms": ms,
+                          "ms_from": how, "wrapper_ms": cuda_ms(fn, 10),
+                          "plain_ms": cuda_ms(
+                              lambda: attention_plain(q, k, v, causal=causal), 5),
+                          "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    head = by_shape["serve_b4_s512"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "launches": launches["flash_attention"], "max_abs_err": max(errs.values()),
+        **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "library_call": "scaled_dot_product_attention(enable_gqa=True), [B, H, S, hd]",
+        "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000 below",
+        "by_shape": by_shape,
+    }
 
 
 def main() -> int:
@@ -338,7 +760,15 @@ def main() -> int:
           "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
                                    key=lambda x: -x[1])[:6]})
 
-    # -- phase 7: times and bounds at the main path's shapes -------------------
+    # -- phases 7-10: the serving kernels, the serving path, parity, trace ----
+    rms_err, flash_err = model_kernel_checks(dev)
+    cfg, params, serve_launches = serve_path(dev)
+    serve_parity(cfg, params, dev)
+    serve_trace(cfg, params, dev)
+    del params
+    torch.cuda.empty_cache()
+
+    # -- phase 11: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and
     # ``plain_ms`` are per call as a caller sees them, host work included.
     g, csr, qmn, grid = full["thermal"]
@@ -407,8 +837,10 @@ def main() -> int:
         "shape": "N=1 window per launch on the main path; batch 5452 below",
         "batch_5452": conv_by_n[5452],
     }
+    kernels = [sweep_entry, conv_entry, rmsnorm_entry(dev, serve_launches, rms_err),
+               flash_entry(dev, serve_launches, flash_err)]
     print(card, flush=True)
-    emit({"kernels": [sweep_entry, conv_entry], "card": card})
+    emit({"kernels": kernels, "card": card})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -2,7 +2,8 @@
 
 No compiler or card is needed: the wrappers must refuse tensors that are not
 on a card (never running the plain version in their place), and the build
-must collect both kernels' sources under one content hash.
+must collect every kernel's source under one content hash, with a C
+signature declared for each launcher.
 """
 
 import shutil
@@ -12,17 +13,37 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv_window.kernel import conv_window_scores_cuda
+from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
 from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
 
 
 def test_sources_and_digest():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["conv_window.cu", "partition_sweep.cu", "runtime.cu"]
+    assert names == ["conv_window.cu", "flash_attention.cu", "partition_sweep.cu",
+                     "rmsnorm.cu", "runtime.cu"]
     d = _build._digest(_build._sources())
     assert d == _build._digest(_build._sources()) and len(d) == 16
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")
     assert "sm_90a" in " ".join(_build._FLAGS)
     assert _build._EXTRA["partition_sweep.cu"] == ["-fmad=false"]
+    assert "rmsnorm.cu" not in _build._EXTRA and "flash_attention.cu" not in _build._EXTRA
+
+
+@pytest.mark.parametrize("name,n_args,source", [
+    ("rmsnorm_launch", 8, "rmsnorm/csrc/rmsnorm.cu"),
+    ("flash_attention_launch", 13, "flash_attention/csrc/flash_attention.cu"),
+])
+def test_model_kernel_signatures(name, n_args, source):
+    """Each launcher's declared ctypes signature matches its C definition:
+    the argument count, a float (not double) for the scalar, an int result."""
+    argtypes, restype = _build._SIGNATURES[name]
+    assert len(argtypes) == n_args and restype is _build.ctypes.c_int
+    assert _build.ctypes.c_float in argtypes and _build.ctypes.c_double not in argtypes
+    text = (_build._PKG / source).read_text()
+    head = text[text.index(f'extern "C" int {name}('):]
+    params = head[head.index("(") + 1:head.index(")")]
+    assert len(params.split(",")) == n_args
 
 
 def test_missing_nvcc_raises():
@@ -47,3 +68,17 @@ def test_conv_wrapper_refuses_cpu_tensors():
         conv_window_scores_cuda(z(1, 12, 12), z(3, 3, 1, 8), z(8), z(3, 3, 8, 16),
                                 z(16), z(16), z(()))
     assert conv_window_scores_cuda.launches == 0
+
+
+def test_rmsnorm_wrapper_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_rows_cuda(torch.zeros(2, 64, dtype=torch.bfloat16), torch.ones(64))
+    assert rmsnorm_rows_cuda.launches == 0
+
+
+def test_flash_wrapper_refuses_cpu_tensors():
+    q = torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16)
+    kv = torch.zeros(2, 8, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bkv_cuda(q, kv, kv, causal=True)
+    assert flash_attention_bkv_cuda.launches == 0

@@ -1,0 +1,114 @@
+"""The port's flash attention agrees with the JAX reference.
+
+Tolerance: ``repro``'s own for this kernel (tests/test_kernels.py), 0.05
+absolute and relative in bfloat16 and 2e-5 in float32. The port's CPU path
+is the exact-softmax plain version; the Pallas kernel and
+``blockwise_attention`` round the unnormalised probabilities to bfloat16
+before the PV product, a relative change of at most 2^-8 per term, and
+every output is rounded to bfloat16 (2^-8 relative): far inside 0.05 for
+outputs of order one. In float32 only the order of the sums differs.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
+from repro.kernels.flash_attention.ref import attention_ref
+from repro.models.attention import blockwise_attention
+
+from repro_torch.kernels.flash_attention import ops
+from repro_torch.kernels.flash_attention.ops import from_bkv, to_bkv
+from repro_torch.kernels.flash_attention.ref import attention_plain
+
+TOL = {torch.bfloat16: 0.05, torch.float32: 2e-5}
+JAX_DTYPE = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
+DTYPES = [torch.bfloat16, torch.float32]
+# (B, Sq, Sk, H, KV, hd, causal)
+CASES = {
+    "gqa2_hd16": (2, 32, 32, 4, 2, 16, True),
+    "gqa4": (2, 64, 64, 8, 2, 64, True),
+    "tail40": (1, 40, 40, 4, 2, 64, True),
+    "mha_hd128": (1, 48, 48, 2, 2, 128, True),
+    "noncausal_sk_ne_sq": (2, 24, 56, 4, 4, 64, False),
+    "noncausal_gqa_tail": (1, 40, 24, 8, 2, 32, False),
+}
+
+
+def inputs(case, dtype, seed=0):
+    b, sq, sk, h, kv, hd, _ = case
+    rng = np.random.RandomState(seed)
+    ts = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(dtype)
+          for s in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd))]
+    js = [jnp.asarray(t.to(torch.float32).numpy()).astype(JAX_DTYPE[dtype]) for t in ts]
+    return ts, js
+
+
+def close(got: torch.Tensor, want, dtype) -> None:
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    np.testing.assert_allclose(got.to(torch.float32).numpy(), want,
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
+def test_matches_pallas_interpret(case, dtype):
+    (q, k, v), (qj, kj, vj) = inputs(case, dtype)
+    got = ops.flash_attention(q, k, v, causal=case[-1], device="cpu")
+    assert got.dtype == dtype and got.shape == q.shape
+    want = jax_flash_attention(qj, kj, vj, causal=case[-1], block_k=min(64, case[2]),
+                               interpret=True)
+    close(got, want, dtype)
+
+
+@pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
+def test_matches_blockwise_attention(case):
+    """Against the model's own online-softmax path, which the prefill of
+    ``repro.models.attention.attention`` runs (in bf16 whatever its inputs)."""
+    (q, k, v), (qj, kj, vj) = inputs(case, torch.bfloat16, seed=1)
+    got = ops.flash_attention(q, k, v, causal=case[-1], device="cpu")
+    close(got, blockwise_attention(qj, kj, vj, causal=case[-1]), torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
+def test_plain_matches_attention_ref_in_kernel_layout(case):
+    """float32, where the two exact softmaxes differ only in summation order."""
+    dtype = torch.float32
+    (q, k, v), _ = inputs(case, dtype, seed=2)
+    qg, kg, vg = to_bkv(q, k, v)
+    b, sq, sk, h, kv, hd, causal = case
+    assert qg.shape == (b * kv, sq, h // kv, hd) and kg.shape == (b * kv, sk, hd)
+    got = attention_plain(qg, kg, vg, causal=causal)
+    as_jax = [jnp.asarray(t.to(torch.float32).numpy()).astype(JAX_DTYPE[dtype])
+              for t in (qg, kg, vg)]
+    close(got, attention_ref(*as_jax, causal=causal), dtype)
+    assert torch.equal(from_bkv(got, b), ops.flash_attention(q, k, v, causal=causal,
+                                                             device="cpu"))
+
+
+def test_layout_round_trip_matches_reference_regroup():
+    """``to_bkv`` groups the G query heads of one KV head together, as
+    ``repro/kernels/flash_attention/ops.py`` does; ``from_bkv`` inverts it."""
+    (q, k, v), (qj, kj, _) = inputs(CASES["gqa4"], torch.float32, seed=3)
+    qg, kg, _ = to_bkv(q, k, v)
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    want_q = qj.reshape(b, sq, kv, h // kv, hd).transpose(0, 2, 1, 3, 4).reshape(
+        b * kv, sq, h // kv, hd)
+    want_k = kj.transpose(0, 2, 1, 3).reshape(b * kv, -1, hd)
+    assert np.array_equal(qg.numpy(), np.asarray(want_q))
+    assert np.array_equal(kg.numpy(), np.asarray(want_k))
+    assert torch.equal(from_bkv(qg, b), q)
+
+
+def test_first_token_attends_only_itself():
+    (q, k, v), _ = inputs((1, 32, 32, 4, 4, 64, True), torch.float32, seed=4)
+    o = ops.flash_attention(q, k, v, causal=True, device="cpu")
+    np.testing.assert_allclose(o[:, 0].numpy(), v[:, 0].numpy(), atol=2e-5, rtol=2e-5)
+
+
+def test_heads_not_a_multiple_of_kv_heads_raise():
+    (q, k, v), _ = inputs((1, 8, 8, 3, 2, 16, True), torch.float32)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.flash_attention(q, k, v, device="cpu")
