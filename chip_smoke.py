@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from the sources in this checkout, holds each
 kernel against its plain PyTorch version on the card, and drives the port's
-two paths:
+three paths:
 
 1. the head count (``repro_torch.launch.headcount.run``: partition the full
    5458-task THERMAL head count on the sweep kernel, then execute the Q_min
@@ -16,7 +16,13 @@ two paths:
    layers, d 2560, 4,411,417,600 random parameters from a seed; batch 4 ×
    prompt 512 × 16 tokens, then batch 1 × prompt 1000 × 8 tokens; every
    RMSNorm and every prefill attention through the CUDA kernels), checked
-   against the plain path on the same weights.
+   against the plain path on the same weights;
+3. serving xlstm-1.3b at full width (the same ``serve``: 48 layers, d 2048,
+   6 groups of 7 mLSTM + 1 sLSTM blocks, random weights from a seed; batch
+   4 × prompt 512 × 16 tokens, then batch 1 × prompt 1024 × 8 tokens; every
+   mLSTM prefill cell through the chunked-mLSTM kernel), checked cell by
+   cell at full width against rounding-derived bounds, and end to end in
+   float32 against the plain path on a float32 copy of the weights.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -26,6 +32,8 @@ the rest of the repository beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import random
 import subprocess
@@ -137,16 +145,23 @@ def queued_ms(fn, reps: int) -> float:
         cycles *= 4
 
 
+def launch_ms(fn, reps: int, symbol: str) -> dict:
+    """{kernel name: (device ms per launch, launches seen)} of each kernel
+    whose name holds ``symbol``, over ``reps`` warmed calls of ``fn``: the
+    profiler's total duration divided by the launches it recorded."""
+    fn()
+    rows = profile_device(lambda: [fn() for _ in range(reps)])
+    return {k: (t / c / 1e3, c) for k, (t, c) in rows.items() if symbol in k and c and t > 0}
+
+
 def kernel_ms(fn, reps: int, symbol: str):
     """(device ms per launch of the kernel whose name holds ``symbol``, how).
     From the profiler's kernel durations; where the profiler saw no such
     kernel, from :func:`queued_ms`."""
-    fn()
-    rows = profile_device(lambda: [fn() for _ in range(reps)])
-    us = sum(t for k, (t, _) in rows.items() if symbol in k)
-    n = sum(c for k, (_, c) in rows.items() if symbol in k)
-    if n and us > 0:
-        return us / n / 1e3, "profiler"
+    rows = launch_ms(fn, reps, symbol)
+    n = sum(c for _, c in rows.values())
+    if n:
+        return sum(ms * c for ms, c in rows.values()) / n, "profiler"
     return queued_ms(fn, reps), "queued_cuda_events"
 
 
@@ -188,14 +203,19 @@ def sweep_modes(q_grid, n_bursts):
 
 # -- the serving path's kernels ----------------------------------------------
 
-# RMSNorm cases: name -> (rows, d, dtype). The first four are the serving
-# path's shapes at batch 4 × prompt 512 (ln1/ln2/final, q-norm, k-norm) and
-# in its decode steps.
+# RMSNorm cases: name -> (rows, d, dtype). The first four are qwen3-4b's
+# shapes at batch 4 × prompt 512 (ln1/ln2/final, q-norm, k-norm) and in its
+# decode steps; the next four xlstm-1.3b's (b4 × 512, b1 × 1024, decode, and
+# the float32 copy of the model).
 RMS_CASES = {
     "prefill_d2560": (2048, 2560, torch.bfloat16),
     "prefill_q_norm": (65536, 128, torch.bfloat16),
     "prefill_k_norm": (16384, 128, torch.bfloat16),
     "decode_d2560": (4, 2560, torch.bfloat16),
+    "xlstm_prefill_d2048": (2048, 2048, torch.bfloat16),
+    "xlstm_prefill_b1_d2048": (1024, 2048, torch.bfloat16),
+    "xlstm_decode_d2048": (4, 2048, torch.bfloat16),
+    "xlstm_f32_prefill_d2048": (2048, 2048, torch.float32),
     "odd_f32": (333, 4100, torch.float32),
     "odd_warp_bf16": (77, 200, torch.bfloat16),
 }
@@ -304,58 +324,79 @@ def model_kernel_checks(dev):
     return rms_err, flash_err
 
 
-def serve_path(dev):
-    """The second main path: build qwen3-4b at full width, serve both
-    requests through the kernels, count the launches."""
-    from repro_torch.configs import get_config
+def serve_path(dev, cfg, requests, want_params, want_launches):
+    """A serving main path: build ``cfg``'s model at full width, serve
+    ``requests`` (batch, prompt, generated tokens) through the kernels,
+    count the launches. ``want_params``: (param_count(), the parameter
+    tensors' numel); ``want_launches``: {kernel: launches over all the
+    requests}."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
     from repro_torch.launch.serve import serve
     from repro_torch.models import api
 
-    cfg = get_config(SERVE_ARCH)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
-    # ModelConfig.param_count() (as in repro) leaves out the q/k-norm
-    # weights and counts 2·d for the final norm; the tensors hold d there.
-    want_params = cfg.param_count() + 2 * cfg.n_layers * cfg.hd - cfg.d_model
-    emit({"phase": "serve_model", "arch": SERVE_ARCH, "layers": cfg.n_layers,
+    emit({"phase": "serve_model", "arch": cfg.name, "layers": cfg.n_layers,
           "d_model": cfg.d_model, "vocab": cfg.vocab, "param_count": cfg.param_count(),
           "parameter_tensors_numel": n_params, "init_s": time.perf_counter() - t0,
           "weights_gb": sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9})
-    if cfg.param_count() != SERVE_PARAMS or n_params != want_params:
-        raise AssertionError(f"qwen3-4b: param_count {cfg.param_count()}, tensors "
-                             f"{n_params}; want {SERVE_PARAMS} and {want_params}")
+    if (cfg.param_count(), n_params) != want_params:
+        raise AssertionError(f"{cfg.name}: param_count {cfg.param_count()}, tensors "
+                             f"{n_params}; want {want_params}")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    rmsnorm_rows_cuda.launches = 0
-    flash_attention_bkv_cuda.launches = 0
-    requests = []
+    counters = {"rmsnorm": rmsnorm_rows_cuda, "flash_attention": flash_attention_bkv_cuda,
+                "mlstm_chunk": mlstm_chunk_bh_cuda}
+    for fn in counters.values():
+        fn.launches = 0
+    served = []
     t0 = time.perf_counter()
-    for b, p, g in SERVE_REQUESTS:
+    for b, p, g in requests:
         report = {}
-        seqs = serve(SERVE_ARCH, b, p, g, seed=0, device=dev, params=params, report=report)
-        requests.append({"batch": b, "prompt": p, "gen": g, **report,
-                         "tokens_ok": bool(seqs.shape == (b, g) and seqs.min() >= 0
-                                           and seqs.max() < cfg.vocab)})
+        seqs = serve(cfg.name, b, p, g, seed=0, device=dev, params=params, report=report)
+        served.append({"batch": b, "prompt": p, "gen": g, **report,
+                       "tokens_ok": bool(seqs.shape == (b, g) and seqs.min() >= 0
+                                         and seqs.max() < cfg.vocab)})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rmsnorm": rmsnorm_rows_cuda.launches,
-                "flash_attention": flash_attention_bkv_cuda.launches}
-    per_step = 4 * cfg.n_layers + 1
-    want = {"rmsnorm": sum(per_step * g for _, _, g in SERVE_REQUESTS),
-            "flash_attention": cfg.n_layers * len(SERVE_REQUESTS)}
-    ok = launches == want and all(r["tokens_ok"] for r in requests)
-    emit({"phase": "serve_path", "seconds": seconds, "requests": requests,
-          "launches": launches, "expected_launches": want,
-          "rmsnorm_per_step": per_step, "flash_per_prefill": cfg.n_layers,
+    launches = {name: fn.launches for name, fn in counters.items()}
+    ok = launches == want_launches and all(r["tokens_ok"] for r in served)
+    emit({"phase": "serve_path", "arch": cfg.name, "seconds": seconds, "requests": served,
+          "launches": launches, "expected_launches": want_launches,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "ok": ok})
     if not ok:
-        raise AssertionError("serve path check failed")
-    return cfg, params, launches
+        raise AssertionError(f"{cfg.name} serve path check failed")
+    return params, launches
+
+
+def qwen_expected(cfg):
+    """(param_count(), tensors' numel) and launches of qwen3-4b's requests:
+    RMSNorm ln1, ln2, q-norm and k-norm in every layer and the final norm
+    at every step, one flash launch per layer per prefill."""
+    # ModelConfig.param_count() (as in repro) leaves out the q/k-norm
+    # weights and counts 2·d for the final norm; the tensors hold d there.
+    numel = cfg.param_count() + 2 * cfg.n_layers * cfg.hd - cfg.d_model
+    per_step = 4 * cfg.n_layers + 1
+    return (SERVE_PARAMS, numel), {
+        "rmsnorm": sum(per_step * g for _, _, g in SERVE_REQUESTS),
+        "flash_attention": cfg.n_layers * len(SERVE_REQUESTS), "mlstm_chunk": 0}
+
+
+def xlstm_expected(cfg):
+    """(param_count(), tensors' numel) and launches of xlstm-1.3b's
+    requests: one RMSNorm per block and the final norm at every step, one
+    mLSTM launch per mLSTM block per prefill."""
+    # param_count() (as in repro) is not what the tensors hold: ROADMAP.md §3
+    per_step = cfg.n_layers + 1
+    mlstm_blocks = cfg.n_layers - cfg.n_layers // cfg.slstm_every
+    return (XLSTM_PARAMS, XLSTM_PARAMS_HELD), {
+        "rmsnorm": sum(per_step * g for _, _, g in XLSTM_REQUESTS), "flash_attention": 0,
+        "mlstm_chunk": mlstm_blocks * len(XLSTM_REQUESTS)}
 
 
 def _scaled_attention(excess: float, first: int):
@@ -385,15 +426,18 @@ def parity_variants():
     reject it. The others show what the reading can see: each kernel
     alone, unbiased rounding noise (float8), systematic errors of 1.6% and
     12.5%."""
-    from repro_torch.models.common import KERNELS, PLAIN, Kernels
+    from repro_torch.models.common import KERNELS, PLAIN
+
+    def plain_but(**kw):
+        return dataclasses.replace(PLAIN, **kw)
 
     return {
-        "control": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -4, 64)),
-        "rmsnorm_kernel_only": Kernels(KERNELS.rmsnorm, PLAIN.attention),
-        "flash_kernel_only": Kernels(PLAIN.rmsnorm, KERNELS.attention),
-        "attention_float8": Kernels(PLAIN.rmsnorm, _float8_attention),
-        "attention_x(1+2^-6)": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -6, 0)),
-        "attention_x(1+2^-3)_past_64": Kernels(PLAIN.rmsnorm, _scaled_attention(2.0 ** -3, 64)),
+        "control": plain_but(attention=_scaled_attention(2.0 ** -4, 64)),
+        "rmsnorm_kernel_only": plain_but(rmsnorm=KERNELS.rmsnorm),
+        "flash_kernel_only": plain_but(attention=KERNELS.attention),
+        "attention_float8": plain_but(attention=_float8_attention),
+        "attention_x(1+2^-6)": plain_but(attention=_scaled_attention(2.0 ** -6, 0)),
+        "attention_x(1+2^-3)_past_64": plain_but(attention=_scaled_attention(2.0 ** -3, 64)),
     }
 
 
@@ -459,13 +503,14 @@ def serve_parity(cfg, params, dev):
     return sound
 
 
-def serve_trace(cfg, params, dev):
-    """Where serving time goes: host clock of a warm prefill (the first
-    request's shape) and of one decode step after it, untraced; then the
-    card's busy time and its largest kernels from a traced run of each."""
+def serve_trace(cfg, params, dev, request=SERVE_REQUESTS[0]):
+    """Where serving time goes: host clock of a warm prefill of ``request``
+    (batch, prompt, generated tokens) and of one decode step after it,
+    untraced; then the card's busy time and its largest kernels from a
+    traced run of each."""
     from repro_torch.models import api
 
-    b, p, g = SERVE_REQUESTS[0]
+    b, p, g = request
     gen = torch.Generator(device=dev).manual_seed(11)
     tokens = torch.randint(0, cfg.vocab, (b, p), device=dev, generator=gen)
     state = {}
@@ -477,7 +522,8 @@ def serve_trace(cfg, params, dev):
         tok = state["logits"][:, -1].argmax(dim=-1, keepdim=True)
         api.decode_step(cfg, params, state["cache"], tok, p)
 
-    out = {"phase": "serve_trace", "what": f"warm prefill b{b} x {p} and one decode step"}
+    out = {"phase": "serve_trace", "arch": cfg.name,
+           "what": f"warm prefill b{b} x {p} and one decode step"}
     for name, fn in (("prefill", prefill), ("decode_step", decode)):
         fn()
         torch.cuda.synchronize()
@@ -497,6 +543,350 @@ def serve_trace(cfg, params, dev):
     emit(out)
 
 
+# -- the xLSTM serving path -----------------------------------------------------
+
+XLSTM_ARCH = "xlstm-1.3b"
+# (batch, prompt, generated tokens); prompts are multiples of the 128-token
+# chunk, as the reference's chunked mLSTM requires.
+XLSTM_REQUESTS = ((4, 512, 16), (1, 1024, 8))
+XLSTM_PARAMS = 1_716_195_328        # param_count(), as repro computes it
+XLSTM_PARAMS_HELD = 2_220_124_160   # what the parameter tensors hold
+XLSTM_TEACHER_STEPS = 4
+# Float32 copy of the model, kernel path against plain path, per logits row:
+# ‖Δ‖₂ / ‖plain‖₂ at most this. It lies near the geometric mean (3.1e-3) of
+# the kernel path's largest reading (1.67e-4, 18× below) and the control's
+# smallest (0.0558, 18.6× above) (NVIDIA H100 80GB HBM3 at 700 W; PERF.md §6).
+XLSTM_F32_REL_LIMIT = 3e-3
+# mLSTM cases: name -> (B·H, S, hd, chunk, dtype, inputs). "model": q, v and
+# the gates ~ N(0, 1), k ~ N(0, 1/hd), as the projections of a normed
+# activation give them; "test": as tests/test_kernels.py draws them (q, k, v
+# at scale 0.5, f + 2); "saturated": i = 5, f = −20.
+MLSTM_CASES = {
+    "serve_b4_s512": (16, 512, 1024, 128, torch.bfloat16, "model"),
+    "serve_b1_s1024": (4, 1024, 1024, 128, torch.bfloat16, "model"),
+    "f32_serve_b4_s512": (16, 512, 1024, 128, torch.float32, "model"),
+    "f32_serve_b1_s1024": (4, 1024, 1024, 128, torch.float32, "model"),
+    "f32_s128_hd64_c64": (4, 128, 64, 64, torch.float32, "test"),
+    "f32_s256_hd64_c128": (4, 256, 64, 128, torch.float32, "test"),
+    "f32_s128_hd128_c32": (4, 128, 128, 32, torch.float32, "test"),
+    "f32_s64_hd32_c64": (4, 64, 32, 64, torch.float32, "test"),
+    "bf16_s100_hd64": (4, 100, 64, 128, torch.bfloat16, "test"),
+    "saturated": (1, 128, 32, 64, torch.float32, "saturated"),
+}
+FAULT = 2.0 ** -6   # the deliberate fault: y × (1 + FAULT) past position 64
+
+
+def mlstm_inputs(case, dev, seed=0):
+    """q, k, v [B·H, S, hd] in the case's type; i_pre, f_pre [B·H, S] float32."""
+    bh, s, hd, _, dtype, kind = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    if kind == "model":
+        q, k, v = (_randn(gen, (bh, s, hd), f32, dev) for _ in range(3))
+        k = k * hd ** -0.5
+        i_pre, f_pre = _randn(gen, (bh, s), f32, dev), _randn(gen, (bh, s), f32, dev)
+    else:
+        scale = 1.0 if kind == "saturated" else 0.5
+        q, k, v = (_randn(gen, (bh, s, hd), f32, dev, scale) for _ in range(3))
+        if kind == "saturated":
+            i_pre = torch.full((bh, s), 5.0, device=dev)
+            f_pre = torch.full((bh, s), -20.0, device=dev)
+        else:
+            i_pre = _randn(gen, (bh, s), f32, dev)
+            f_pre = _randn(gen, (bh, s), f32, dev) + 2.0
+    return q.to(dtype), k.to(dtype), v.to(dtype), i_pre, f_pre
+
+
+def mlstm_bounds(q, k, v, i_pre, f_pre, y_plain, chunk=128):
+    """|Δ| allowed between the mLSTM kernel and its plain version on the
+    card: (y, (C, n, m)).
+
+    Both compute one float32 formula; they differ in the order of float32
+    sums and in contracted multiply-adds. A sum of n products in any order
+    lies within n·2^-24 of the exact sum, relative to the sum of the terms'
+    magnitudes, which the plain version run on |q|, |k|, |v| gives (same
+    gates). The longest chains: q·C (hd terms) on a state built from sums
+    of L terms per chunk plus 2 roundings per chunk carried; W·v (L) on
+    q·kᵀ (hd). Two such results differ by at most (hd + L + 4·nc + 32)·
+    2^-23 of the magnitudes (32 for exp and the products). exp and log1p
+    within 2 ulp move a log-gate cumulated over a chunk by 2^-22·Σ|log f|,
+    which scales W, g and gsrc by as much twice: + 2^-21·Σ_chunk|log f|.
+    Then y = num / max(|den|, 1): |Δy| ≤ (|Δnum| + |y|·|Δden|) / max(|den|, 1).
+    A bfloat16 y adds one output step (2^-7·|y|, 2^-14 for the rounding of
+    y_plain). C and n: the same without hd; m: 2^-22·(Σ_S |log f| + |m|)."""
+    from repro_torch.kernels.mlstm_chunk.ref import chunk_len, log_sigmoid, mlstm_chunk_terms
+
+    bh, s, hd = q.shape
+    L = chunk_len(s, chunk)
+    nc = s // L
+    num, den, (_, _, m) = mlstm_chunk_terms(q, k, v, i_pre, f_pre, chunk=chunk)
+    num_a, den_a, (c_a, n_a, _) = mlstm_chunk_terms(q.abs(), k.abs(), v.abs(), i_pre, f_pre,
+                                                    chunk=chunk)
+    logf = log_sigmoid(f_pre.to(torch.float32)).abs()
+    gate = 2.0 ** -21 * logf.reshape(bh, nc, L).sum(-1).amax(-1)         # [B·H]
+    rel_state = (L + 4 * nc + 32) * 2.0 ** -23 + gate
+    rel_y = rel_state + hd * 2.0 ** -23
+    scale = den.abs().clamp(min=1.0)[..., None]
+    y_abs = (num_a + (num / scale).abs() * den_a[..., None]) / scale
+    y_bound = rel_y[:, None, None] * y_abs + 1e-30
+    if y_plain.dtype == torch.bfloat16:
+        y_bound = y_bound + (BF16_STEP + 2.0 ** -14) * y_plain.to(torch.float32).abs()
+    return y_bound, (rel_state[:, None, None] * c_a + 1e-30, rel_state[:, None] * n_a + 1e-30,
+                     2.0 ** -22 * (logf.sum(-1) + m.abs()) + 1e-30)
+
+
+def mlstm_pair(args, chunk=128):
+    """The kernel and its plain version on the same inputs, held to
+    :func:`mlstm_bounds` → ({y, C, n, m: max |Δ|}, {…: share of the bound
+    used}, y's bound, kernel y, plain y)."""
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_plain
+
+    got, state = mlstm_chunk_bh_cuda(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    want, pstate = mlstm_chunk_plain(*args, chunk=chunk)
+    y_bound, state_bounds = mlstm_bounds(*args, want, chunk=chunk)
+    err, used = {}, {}
+    for name, g, w, lim in zip("yCnm", (got, *state), (want, *pstate), (y_bound, *state_bounds)):
+        err[name], used[name] = _held(g, w, lim)
+    return err, used, y_bound, got, want
+
+
+def fault_share(got, want, y_bound) -> float:
+    """Largest share of the bound that the kernel's y × (1 + FAULT) past
+    position 64 uses: above 1 if the bound can see such a fault."""
+    bad = got.to(torch.float32)
+    bad[:, 64:] *= 1.0 + FAULT
+    bad = bad.to(got.dtype).to(torch.float32)
+    return float(((bad - want.to(torch.float32)).abs() / y_bound)[:, 64:].max())
+
+
+def mlstm_kernel_checks(dev):
+    """The mLSTM kernel against its plain version on the card, at both
+    serve shapes in bfloat16 and float32, at the reference's test shapes and
+    in saturation, each held to :func:`mlstm_bounds`; the bound must see
+    the (1 + 2^-6) fault in every case longer than 64."""
+    errs, shares, faults = {}, {}, {}
+    for name, case in MLSTM_CASES.items():
+        args = mlstm_inputs(case, dev)
+        errs[name], shares[name], y_bound, got, want = mlstm_pair(args, chunk=case[3])
+        if case[1] > 64:
+            faults[name] = fault_share(got, want, y_bound)
+        del args, y_bound, got, want
+    emit({"phase": "mlstm_vs_plain_on_card", "max_abs_err": errs, "share_of_bound_used": shares,
+          "fault_share_of_bound": faults,
+          "bound": "y: (hd + L + 4·nc + 32)·2^-23 + 2^-21·Σ_chunk|log f| of the plain version "
+                   "on |q|,|k|,|v| (divided by max(|den|,1)) [+ (2^-7 + 2^-14)·|y| in bf16]; "
+                   "C, n: the same without hd; m: 2^-22·(Σ|log f| + |m|)",
+          "fault": "y x (1 + 2^-6) past position 64 must use more than the whole bound"})
+    blind = {k: v for k, v in faults.items() if v <= 1.0}
+    if blind:
+        raise AssertionError(f"the mLSTM bound does not see a 2^-6 fault: {blind}")
+    return {name: e["y"] for name, e in errs.items()}
+
+
+def _tokens(cfg, b, p, dev, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, cfg.vocab, (b, p), device=dev, generator=gen)
+
+
+def xlstm_layer_checks(cfg, params, dev):
+    """Every mLSTM cell of a b4 × 512 prefill at full width: the inputs of
+    all 42 cells captured on the plain path (q, k, v, i, f after the
+    projections), then the kernel against its plain version on each, held
+    to :func:`mlstm_bounds`."""
+    from repro_torch.kernels.mlstm_chunk.ops import fold
+    from repro_torch.models import api
+    from repro_torch.models.common import PLAIN
+
+    captured = []
+
+    def capture(*args):
+        captured.append(args)
+        return PLAIN.mlstm(*args)
+
+    b, p, g = XLSTM_REQUESTS[0]
+    api.prefill(cfg, params, {"tokens": _tokens(cfg, b, p, dev, 5)}, p + g,
+                dataclasses.replace(PLAIN, mlstm=capture))
+    shares = []
+    while captured:
+        args = [fold(t) for t in captured.pop(0)]
+        shares.append(mlstm_pair(args)[1])
+        del args
+    worst = {k: max(s[k] for s in shares) for k in "yCnm"}
+    emit({"phase": "xlstm_mlstm_cells_vs_plain", "request": [b, p], "cells": len(shares),
+          "largest_share_of_bound": worst, "y_share_by_cell": [s["y"] for s in shares],
+          "bound": "as mlstm_vs_plain_on_card"})
+    if len(shares) != cfg.n_layers - cfg.n_layers // cfg.slstm_every:
+        raise AssertionError(f"captured {len(shares)} mLSTM cells")
+    return worst
+
+
+def _scaled_mlstm(excess: float, first: int):
+    """The plain mLSTM cell with its output scaled by 1 + ``excess`` at
+    positions from ``first`` on."""
+    def mlstm(*args):
+        from repro_torch.models.common import PLAIN
+
+        y, state = PLAIN.mlstm(*args)
+        y = y.to(torch.float32)
+        y[:, first:] *= 1.0 + excess
+        return y.to(args[0].dtype), state
+    return mlstm
+
+
+def _teacher_forced(cfg, params, tokens, gen, pairs):
+    """Prefill, then ``XLSTM_TEACHER_STEPS`` decode steps, for each kernel
+    pair in ``pairs`` (the first one's greedy tokens fed to all) → one list
+    of logits per pair, prefill first."""
+    from repro_torch.models import api
+
+    p = tokens.shape[1]
+    runs = [api.prefill(cfg, params, {"tokens": tokens}, p + gen, ks) for ks in pairs]
+    logits = [[lo] for lo, _ in runs]
+    caches = [c for _, c in runs]
+    tok = logits[0][0][:, -1].argmax(dim=-1, keepdim=True)
+    for i in range(XLSTM_TEACHER_STEPS):
+        for j, ks in enumerate(pairs):
+            lo, caches[j] = api.decode_step(cfg, params, caches[j], tok, p + i, ks)
+            logits[j].append(lo)
+        tok = logits[0][-1][:, -1].argmax(dim=-1, keepdim=True)
+    torch.cuda.synchronize()
+    return logits
+
+
+def xlstm_bf16_parity(cfg, params, dev):
+    """For the record, in bfloat16: the kernel path against the plain path,
+    per logits row, and paths that change one site (each kernel alone, the
+    mLSTM output scaled). Gated only on finite logits and greedy tokens
+    within the vocabulary: bf16 rounding grows through 48 random-weight
+    layers as far as a 2^-6 fault does (PERF.md §6)."""
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS, PLAIN
+
+    variants = {
+        "rmsnorm_kernel_only": dataclasses.replace(PLAIN, rmsnorm=KERNELS.rmsnorm),
+        "mlstm_kernel_only": dataclasses.replace(PLAIN, mlstm=KERNELS.mlstm),
+        "mlstm_x(1+2^-6)": dataclasses.replace(PLAIN, mlstm=_scaled_mlstm(FAULT, 0)),
+        "mlstm_x(1+2^-6)_past_64": dataclasses.replace(PLAIN, mlstm=_scaled_mlstm(FAULT, 64)),
+        "mlstm_x(1+2^-4)_past_64": dataclasses.replace(PLAIN, mlstm=_scaled_mlstm(2.0 ** -4, 64)),
+    }
+    out = []
+    for r, (b, p, g) in enumerate(XLSTM_REQUESTS):
+        tokens = _tokens(cfg, b, p, dev, b * 7919 + p)
+        kl, pl = _teacher_forced(cfg, params, tokens, g, (KERNELS, PLAIN))
+        ok = all(bool(torch.isfinite(t).all()) for t in kl) and all(
+            0 <= int(t[:, -1].argmax(-1).min()) and int(t[:, -1].argmax(-1).max()) < cfg.vocab
+            for t in kl)
+        rel = torch.stack([_row_rel(k, w) for k, w in zip(kl, pl)])  # [steps, batch]
+        row = {"batch": b, "prompt": p, "decode_steps": XLSTM_TEACHER_STEPS,
+               "row_rel_min_median_max": [float(rel.min()), float(rel.median()),
+                                          float(rel.max())],
+               "row_rel_prefill": [float(x) for x in rel[0]], "finite_and_in_vocab": ok}
+        if r == 0:
+            row["variants_prefill_row_rel_min_median_max"] = {}
+            for name, ks in variants.items():
+                v = _row_rel(api.prefill(cfg, params, {"tokens": tokens}, p + g, ks)[0], pl[0])
+                row["variants_prefill_row_rel_min_median_max"][name] = [
+                    float(v.min()), float(v.median()), float(v.max())]
+        out.append(row)
+        if not ok:
+            raise AssertionError(f"xlstm kernel path: non-finite logits or tokens: {row}")
+    emit({"phase": "xlstm_bf16_kernel_vs_plain_path", "requests": out,
+          "reading": "per logits row ‖Δ‖₂/‖plain‖₂, for the record only"})
+
+
+def xlstm_f32_parity(cfg, params, dev):
+    """The kernel path against the plain path in float32, where rounding is
+    some 10^4 times smaller than in bfloat16 and a fault is not: a float32
+    copy of the same weights (the modules compute in their weights' type),
+    prefill b4 × 512 and teacher-forced decode steps, per logits row. The
+    control is the plain path with the mLSTM output × (1 + 2^-6) past
+    position 64; the limit lies between the two readings."""
+    from repro_torch.models.common import KERNELS, PLAIN
+
+    twin = copy.deepcopy(params).float()
+    b, p, g = XLSTM_REQUESTS[0]
+    tokens = _tokens(cfg, b, p, dev, 17)
+    control = dataclasses.replace(PLAIN, mlstm=_scaled_mlstm(FAULT, 64))
+    kl, pl, cl = _teacher_forced(cfg, twin, tokens, g, (KERNELS, PLAIN, control))
+    del twin
+    torch.cuda.empty_cache()
+    if kl[0].dtype != torch.float32 or not all(bool(torch.isfinite(t).all()) for t in kl):
+        raise AssertionError("float32 kernel path: wrong type or non-finite logits")
+    rel = torch.stack([_row_rel(k, w) for k, w in zip(kl, pl)])
+    ctl = _row_rel(cl[0], pl[0])
+    sound, control_min = float(rel.max()), float(ctl.min())
+    emit({"phase": "xlstm_f32_kernel_vs_plain_path", "batch": b, "prompt": p,
+          "decode_steps": XLSTM_TEACHER_STEPS, "row_rel_max": sound,
+          "row_rel_median": float(rel.median()), "row_rel_by_step": rel.tolist(),
+          "control_prefill_row_rel_min": control_min,
+          "control_prefill_row_rel": [float(x) for x in ctl],
+          "geometric_mean": (sound * control_min) ** 0.5, "limit": XLSTM_F32_REL_LIMIT,
+          "reading": "per logits row ‖Δ‖₂/‖plain‖₂; control: plain path with the mLSTM "
+                     "output x (1 + 2^-6) past position 64"})
+    if sound > XLSTM_F32_REL_LIMIT:
+        raise AssertionError(f"float32 kernel path off the plain path: {sound} > "
+                             f"{XLSTM_F32_REL_LIMIT}")
+    if control_min <= XLSTM_F32_REL_LIMIT:
+        raise AssertionError(f"the control passed the float32 check ({control_min} <= "
+                             f"{XLSTM_F32_REL_LIMIT}): it does not discriminate")
+    return sound, control_min
+
+
+def mlstm_work(bh, s, hd, L, elt):
+    """(bytes, operations) the chunked cell needs: q, k, v and the gates
+    read once, y and (C, n, m) written once; per (b·h, chunk) the C update
+    (2·L·hd²), q·C where C is not zero (2·L·hd² past the first chunk), the
+    causal halves of q·kᵀ and W·v (2·2·L(L+1)/2·hd), and q·n and the n
+    update (2·2·L·hd)."""
+    nc = s // L
+    nbytes = 4 * bh * s * hd * elt + 2 * bh * s * 4 + bh * (hd * hd + hd + 1) * 4
+    per_chunk = 2 * L * hd * hd + 2 * L * (L + 1) * hd + 4 * L * hd
+    ops = bh * (nc * per_chunk + (nc - 1) * 2 * L * hd * hd)
+    return nbytes, ops
+
+
+def mlstm_entry(dev, launches, errs):
+    """Times and bound of the mLSTM kernel at the two prefill shapes; the
+    headline numbers are the b4 × 512 request's."""
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_plain
+
+    by_shape = {}
+    for name in ("serve_b4_s512", "serve_b1_s1024"):
+        case = MLSTM_CASES[name]
+        bh, s, hd, chunk, _, _ = case
+        args = mlstm_inputs(case, dev)
+        fn = lambda: mlstm_chunk_bh_cuda(*args, chunk=chunk)  # noqa: E731
+        # each of the three stages runs once per call
+        stages = {k[:60]: v for k, v in launch_ms(fn, 10, "mlstm_").items()}
+        ms, how = (sum(t for t, _ in stages.values()), "profiler") if stages else (
+            queued_ms(fn, 10), "queued_cuda_events")
+        nbytes, ops = mlstm_work(bh, s, hd, min(chunk, s), args[0].element_size())
+        bound, by = _bound(nbytes, ops, PEAK_F32_PER_S)
+        by_shape[name] = {"shape": [bh, s, hd, chunk], "ops": ops, "bytes": nbytes, "ms": ms,
+                          "ms_from": how, "stages_ms": {k: t for k, (t, _) in stages.items()},
+                          "stage_launches_seen_of_10": {k: c for k, (_, c) in stages.items()},
+                          "wrapper_ms": cuda_ms(fn, 10),
+                          "plain_ms": cuda_ms(lambda: mlstm_chunk_plain(*args, chunk=chunk), 3),
+                          "bound_ms": bound, "bound_by": by, "library_ms": None}
+        del args
+    head = by_shape["serve_b4_s512"]
+    return {
+        "name": "mlstm_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
+        "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:27",
+        "launches": sum(n["mlstm_chunk"] for n in launches.values()),
+        "max_abs_err": max(errs.values()),
+        **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")},
+        "library_note": "none: no single PyTorch call computes the chunked mLSTM cell",
+        "shape": "B·H 16, S 512, hd 1024, L 128, bf16 (b4 x 512 prefill); B·H 4 x 1024 below",
+        "by_shape": by_shape,
+    }
+
+
 def _bound(nbytes, ops, peak_ops):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
@@ -511,7 +901,8 @@ def rmsnorm_entry(dev, launches, errs):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
 
     by_shape = {}
-    for name in ("prefill_d2560", "prefill_q_norm", "prefill_k_norm", "decode_d2560"):
+    for name in ("prefill_d2560", "prefill_q_norm", "prefill_k_norm", "decode_d2560",
+                 "xlstm_prefill_d2048", "xlstm_prefill_b1_d2048", "xlstm_decode_d2048"):
         n, d, dtype = RMS_CASES[name]
         x, w = rms_inputs(RMS_CASES[name], dev)
         fn = lambda: rmsnorm_rows_cuda(x, w, 1e-6)  # noqa: E731
@@ -529,7 +920,9 @@ def rmsnorm_entry(dev, launches, errs):
         "name": "rmsnorm", "route": "cuda",
         "source": "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm/kernel.py:17",
-        "launches": launches["rmsnorm"], "max_abs_err": max(errs.values()),
+        "launches": sum(n["rmsnorm"] for n in launches.values()),
+        "launches_by_path": {arch: n["rmsnorm"] for arch, n in launches.items()},
+        "max_abs_err": max(errs.values()),
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "library_call": "torch.nn.functional.rms_norm (weight cast to x's dtype)",
@@ -572,7 +965,8 @@ def flash_entry(dev, launches, errs):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
-        "launches": launches["flash_attention"], "max_abs_err": max(errs.values()),
+        "launches": sum(n["flash_attention"] for n in launches.values()),
+        "max_abs_err": max(errs.values()),
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "library_call": "scaled_dot_product_attention(enable_gqa=True), [B, H, S, hd]",
@@ -761,14 +1155,29 @@ def main() -> int:
                                    key=lambda x: -x[1])[:6]})
 
     # -- phases 7-10: the serving kernels, the serving path, parity, trace ----
+    from repro_torch.configs import get_config
+
     rms_err, flash_err = model_kernel_checks(dev)
-    cfg, params, serve_launches = serve_path(dev)
+    cfg = get_config(SERVE_ARCH)
+    params, serve_launches = serve_path(dev, cfg, SERVE_REQUESTS, *qwen_expected(cfg))
     serve_parity(cfg, params, dev)
     serve_trace(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
 
-    # -- phase 11: times and bounds at the main paths' shapes ------------------
+    # -- phases 11-16: the xLSTM path: mLSTM kernel, serving, checks, trace ---
+    mlstm_err = mlstm_kernel_checks(dev)
+    xcfg = get_config(XLSTM_ARCH)
+    xparams, xlstm_launches = serve_path(dev, xcfg, XLSTM_REQUESTS, *xlstm_expected(xcfg))
+    xlstm_layer_checks(xcfg, xparams, dev)
+    xlstm_f32_parity(xcfg, xparams, dev)
+    xlstm_bf16_parity(xcfg, xparams, dev)
+    serve_trace(xcfg, xparams, dev, XLSTM_REQUESTS[0])
+    del xparams
+    torch.cuda.empty_cache()
+    launches_by_path = {SERVE_ARCH: serve_launches, XLSTM_ARCH: xlstm_launches}
+
+    # -- phase 17: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and
     # ``plain_ms`` are per call as a caller sees them, host work included.
     g, csr, qmn, grid = full["thermal"]
@@ -837,8 +1246,9 @@ def main() -> int:
         "shape": "N=1 window per launch on the main path; batch 5452 below",
         "batch_5452": conv_by_n[5452],
     }
-    kernels = [sweep_entry, conv_entry, rmsnorm_entry(dev, serve_launches, rms_err),
-               flash_entry(dev, serve_launches, flash_err)]
+    kernels = [sweep_entry, conv_entry, rmsnorm_entry(dev, launches_by_path, rms_err),
+               flash_entry(dev, launches_by_path, flash_err),
+               mlstm_entry(dev, launches_by_path, mlstm_err)]
     print(card, flush=True)
     emit({"kernels": kernels, "card": card})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,18 @@
 """Architecture configs of the port, one module per architecture.
 
 Only the architectures whose model family the port runs are registered:
-qwen3-4b (dense). The other nine of ``repro.configs`` follow with their
-families (ROADMAP.md, queue 1).
+qwen3-4b (dense) and xlstm-1.3b (ssm). The other eight of ``repro.configs``
+follow with their families (ROADMAP.md, queue 1).
 """
 
-from . import qwen3_4b
+from . import qwen3_4b, xlstm_1_3b
 from .base import REGISTRY, ModelConfig, get_config
 
 ALL_ARCHS = sorted(REGISTRY)
 
 SMOKE_CONFIGS = {
     "qwen3-4b": qwen3_4b.SMOKE,
+    "xlstm-1.3b": xlstm_1_3b.SMOKE,
 }
 
 

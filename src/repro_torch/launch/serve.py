@@ -1,13 +1,15 @@
 """Batched serving: one prefill builds the padded KV cache, then
 greedy decode steps extend it.
 
-    python -m repro_torch.launch.serve [--arch qwen3-4b] [--batch 4]
+    python -m repro_torch.launch.serve [--arch qwen3-4b|xlstm-1.3b] [--batch 4]
         [--prompt-len 32] [--gen 16] [--smoke] [--device cuda]
 
-The unplanned path of ``repro/launch/serve.py::serve``. Without ``--smoke``
-the architecture runs at its full width (qwen3-4b: 36 layers, d 2560,
-4,411,417,600 parameters) with random weights from ``--seed``; ``--smoke``
-takes the small config of the same architecture. The planned path
+The unplanned path of ``repro/launch/serve.py::serve``, for qwen3-4b (dense,
+KV cache) and xlstm-1.3b (recurrent state; its prompt length must be a
+multiple of 128 or below 128). Without ``--smoke`` the architecture runs at
+its full width (qwen3-4b: 36 layers, d 2560, 4,411,417,600 parameters;
+xlstm-1.3b: 48 layers, d 2048) with random weights from ``--seed``;
+``--smoke`` takes the small config of the same architecture. The planned path
 (``--plan-table``, energy cycles under the burst runtime) waits for the
 port's plan tables (ROADMAP.md queue 1).
 """
@@ -35,7 +37,8 @@ def _sync(dev: torch.device) -> None:
 def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = False,
           seed: int = 0, device="cuda", params=None, report: Optional[dict] = None) -> torch.Tensor:
     """Serve one batched request; returns the generated tokens [batch, gen]
-    (int64, on the host).
+    (int64, on the host). The cache is the KV cache or the recurrent state,
+    as the architecture's family has it.
 
     Parameters come from ``api.init_params(cfg, seed)`` unless ``params``
     (a model already on ``device``) is given; the prompts are drawn from a

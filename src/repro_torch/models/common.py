@@ -19,6 +19,8 @@ from torch import nn
 from ..kernels.flash_attention import ops as attention_ops
 from ..kernels.flash_attention.ops import from_bkv, to_bkv
 from ..kernels.flash_attention.ref import attention_plain
+from ..kernels.mlstm_chunk import ops as mlstm_ops
+from ..kernels.mlstm_chunk.ref import mlstm_chunk_plain
 from ..kernels.rmsnorm import ops as rmsnorm_ops
 from ..kernels.rmsnorm.ref import rmsnorm_plain
 
@@ -33,10 +35,13 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The model's two kernel-backed functions, swapped as a pair.
+    """The model's kernel-backed functions, swapped together.
 
     ``rmsnorm(x, w, eps)`` → like x; ``attention(q, k, v, causal)`` in the
-    model layout ``[B, S, H, hd]`` / ``[B, S, KV, hd]``. :data:`KERNELS`
+    model layout ``[B, S, H, hd]`` / ``[B, S, KV, hd]``; ``mlstm(q, k, v,
+    i_pre, f_pre)`` → (y, (C, n, m)), the chunked mLSTM cell from the zero
+    state in the layout of :func:`..kernels.mlstm_chunk.ops.mlstm_cell`.
+    :data:`KERNELS`
     dispatches on the tensors' device (the CUDA kernels on a card, the plain
     versions on the CPU); :data:`PLAIN` runs the plain versions on any
     device and is the kernels' referee on the card.
@@ -44,6 +49,7 @@ class Kernels:
 
     rmsnorm: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
     attention: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, bool], torch.Tensor]
+    mlstm: Callable
 
 
 def _kernel_rmsnorm(x, w, eps):
@@ -58,8 +64,16 @@ def _plain_attention(q, k, v, causal):
     return from_bkv(attention_plain(*to_bkv(q, k, v), causal=causal), q.shape[0])
 
 
-KERNELS = Kernels(rmsnorm=_kernel_rmsnorm, attention=_kernel_attention)
-PLAIN = Kernels(rmsnorm=rmsnorm_plain, attention=_plain_attention)
+def _kernel_mlstm(q, k, v, i_pre, f_pre):
+    return mlstm_ops.mlstm_cell(q, k, v, i_pre, f_pre, device=q.device)
+
+
+def _plain_mlstm(q, k, v, i_pre, f_pre):
+    return mlstm_ops.in_model_layout(mlstm_chunk_plain, q, k, v, i_pre, f_pre)
+
+
+KERNELS = Kernels(rmsnorm=_kernel_rmsnorm, attention=_kernel_attention, mlstm=_kernel_mlstm)
+PLAIN = Kernels(rmsnorm=rmsnorm_plain, attention=_plain_attention, mlstm=_plain_mlstm)
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], scale: float = 0.02) -> torch.Tensor:

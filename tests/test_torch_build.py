@@ -20,30 +20,35 @@ from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
 
 def test_sources_and_digest():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["conv_window.cu", "flash_attention.cu", "partition_sweep.cu",
-                     "rmsnorm.cu", "runtime.cu"]
+    assert names == ["conv_window.cu", "flash_attention.cu", "mlstm_chunk.cu",
+                     "partition_sweep.cu", "rmsnorm.cu", "runtime.cu"]
     d = _build._digest(_build._sources())
     assert d == _build._digest(_build._sources()) and len(d) == 16
     assert _build.BUILD_ROOT.parts[-2:] == ("build", "repro_torch")
     assert "sm_90a" in " ".join(_build._FLAGS)
     assert _build._EXTRA["partition_sweep.cu"] == ["-fmad=false"]
     assert "rmsnorm.cu" not in _build._EXTRA and "flash_attention.cu" not in _build._EXTRA
+    assert "mlstm_chunk.cu" not in _build._EXTRA
 
 
 @pytest.mark.parametrize("name,n_args,source", [
     ("rmsnorm_launch", 8, "rmsnorm/csrc/rmsnorm.cu"),
     ("flash_attention_launch", 13, "flash_attention/csrc/flash_attention.cu"),
+    ("mlstm_chunk_launch", 16, "mlstm_chunk/csrc/mlstm_chunk.cu"),
 ])
 def test_model_kernel_signatures(name, n_args, source):
     """Each launcher's declared ctypes signature matches its C definition:
-    the argument count, a float (not double) for the scalar, an int result."""
+    the argument count, a float (not double) in the place of each float
+    scalar and nowhere else, an int result."""
     argtypes, restype = _build._SIGNATURES[name]
     assert len(argtypes) == n_args and restype is _build.ctypes.c_int
-    assert _build.ctypes.c_float in argtypes and _build.ctypes.c_double not in argtypes
+    assert _build.ctypes.c_double not in argtypes
     text = (_build._PKG / source).read_text()
     head = text[text.index(f'extern "C" int {name}('):]
-    params = head[head.index("(") + 1:head.index(")")]
-    assert len(params.split(",")) == n_args
+    params = [p.split() for p in head[head.index("(") + 1:head.index(")")].split(",")]
+    assert len(params) == n_args
+    float_scalar = [p[0] == "float" and "*" not in "".join(p) for p in params]
+    assert [a is _build.ctypes.c_float for a in argtypes] == float_scalar
 
 
 def test_missing_nvcc_raises():

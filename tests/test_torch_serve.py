@@ -116,9 +116,9 @@ def test_resolve_config_errors_and_passthrough():
     cfg = SMOKE_CONFIGS[ARCH]
     assert resolve_config(cfg) is cfg
     with pytest.raises(KeyError, match="smoke"):
-        resolve_config("xlstm-1.3b", smoke=True)
+        resolve_config("zamba2-7b", smoke=True)
     with pytest.raises(KeyError, match="unknown architecture"):
-        get_config("xlstm-1.3b")
+        get_config("zamba2-7b")
     with pytest.raises(TypeError):
         resolve_config(3)
 
@@ -263,11 +263,11 @@ def test_serve_rejects_gen_zero():
 
 def test_unported_families_raise():
     moe = dataclasses.replace(SMOKE_CONFIGS[ARCH], family="moe")
-    ssm = dataclasses.replace(SMOKE_CONFIGS[ARCH], family="ssm")
+    hybrid = dataclasses.replace(SMOKE_CONFIGS[ARCH], family="hybrid")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         api.init_params(moe, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.init_params(ssm, device="cpu")
+        api.init_params(hybrid, device="cpu")
 
 
 def test_cuda_requests_without_a_card_raise():
