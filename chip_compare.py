@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Serving kernels of one checkout on one card, for comparing two commits.
+
+    python3 chip_compare.py <checkout root> <label>
+
+Imports ``repro_torch`` from ``<checkout root>/src`` (building its kernels
+there), then prints one JSON line: ``nvcc -Xptxas -v``'s registers and
+spills of the flash and RMSNorm kernels; the flash kernel's device time per
+launch (``torch.profiler``) and its wrapper's time beside
+``scaled_dot_product_attention`` at qwen3-4b's two prefill shapes; the
+RMSNorm kernel's device time, and the host-bound times (least and median of
+15 rounds of 200 back-to-back calls, CUDA events) of its wrapper, of the
+model-layout op and of ``F.rms_norm`` at the serving shapes, with the parts
+of the wrapper's host path; and a warm full-width qwen3-4b b4 × 512 prefill
+and decode step (host clock, and the card's busy time from the profiler).
+Compare two checkouts only within one call to the card, in turns: parent,
+change, change, parent. Exits 2 without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def main() -> int:
+    root, label = sys.argv[1], sys.argv[2]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    sys.path.insert(0, f"{root}/src")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch.nn.functional as F
+
+    from chip_smoke import cuda_ms, kernel_ms, profile_device
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.kernels.rmsnorm.ops import rmsnorm
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    lib = _build.load_library()
+    out = {"label": label, "root": root, "build_s": time.perf_counter() - t0,
+           "card": subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                   "--format=csv,noheader"], capture_output=True,
+                                  text=True, timeout=60).stdout.strip()}
+    ptxas = {}
+    for src in ("flash_attention/csrc/flash_attention.cu", "rmsnorm/csrc/rmsnorm.cu"):
+        r = subprocess.run([_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c",
+                            str(_build._PKG / src),
+                            "-o", str(_build.BUILD_ROOT / "ptxas_probe.o")],
+                           capture_output=True, text=True, timeout=600)
+        entry = None
+        for line in r.stderr.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and ("registers" in line or "spill" in line):
+                ptxas.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
+    out["ptxas"] = ptxas
+
+    def host_ms(fn, reps=200, rounds=15):
+        xs = sorted(cuda_ms(fn, reps) for _ in range(rounds))
+        return [xs[0], statistics.median(xs)]
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, (b, s, h, kv, hd) in {"b4_s512": (4, 512, 32, 8, 128),
+                                    "b1_s1000": (1, 1000, 32, 8, 128)}.items():
+        q = torch.randn(b * kv, s, h // kv, hd, device=dev, generator=gen).to(torch.bfloat16)
+        k = torch.randn(b * kv, s, hd, device=dev, generator=gen).to(torch.bfloat16)
+        v = torch.randn(b * kv, s, hd, device=dev, generator=gen).to(torch.bfloat16)
+        fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=True)  # noqa: E731
+        ms, _, seen = kernel_ms(fn, 20, "flash")
+        ql = q.reshape(b, kv, s, h // kv, hd).permute(0, 1, 3, 2, 4).reshape(b, h, s, hd)
+        kl, vl = (t.reshape(b, kv, s, hd) for t in (k, v))
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            ql, kl, vl, is_causal=True, enable_gqa=True)
+        sdpa()
+        sdpa_device_ms = sum(t for t, _ in profile_device(
+            lambda: [sdpa() for _ in range(20)]).values()) / 20 / 1e3
+        out[f"flash_{name}"] = {"ms": ms, "profiled": seen, "wrapper_ms": cuda_ms(fn, 20),
+                                "sdpa_ms": cuda_ms(sdpa, 20),
+                                "sdpa_device_ms_per_call": sdpa_device_ms}
+
+    for name, (n, d) in {"d2560": (2048, 2560), "q_norm": (65536, 128),
+                         "k_norm": (16384, 128), "decode": (4, 2560),
+                         "x2048": (2048, 2048)}.items():
+        x = (torch.randn(n, d, device=dev, generator=gen) * 3).to(torch.bfloat16)
+        w = torch.randn(d, device=dev, generator=gen)
+        fn = lambda: rmsnorm_rows_cuda(x, w, 1e-6)  # noqa: E731
+        ms, _, seen = kernel_ms(fn, 20, "rmsnorm")
+        x3 = x.reshape(1, n, d) if n < 16 else x.reshape(4, n // 4, d)
+        w_lib = w.to(torch.bfloat16)  # cast once, outside the timing
+        out[f"rms_{name}"] = {
+            "ms": ms, "profiled": seen, "wrapper_ms_least_median": host_ms(fn),
+            "op_3d_ms_least_median": host_ms(lambda: rmsnorm(x3, w, 1e-6, device=x3.device)),
+            "library_ms_least_median": host_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6))}
+        if name == "decode":
+            y = torch.empty_like(x)
+            args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, 1e-6, 1)
+            stream = torch.cuda.current_stream().cuda_stream
+            out["rms_host_parts_ms_least_median"] = {
+                "empty_like": host_ms(lambda: torch.empty_like(x)),
+                "current_stream": host_ms(lambda: torch.cuda.current_stream().cuda_stream),
+                "current_device": host_ms(torch.cuda.current_device),
+                "ctypes_launch": host_ms(lambda: lib.rmsnorm_launch(*args, stream))}
+
+    cfg = get_config("qwen3-4b")
+    params = api.init_params(cfg, seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (4, 512), device=dev, generator=gen)
+    state = {}
+
+    def prefill():
+        state["logits"], state["cache"] = api.prefill(cfg, params, {"tokens": tokens}, 528)
+
+    def decode():
+        tok = state["logits"][:, -1].argmax(dim=-1, keepdim=True)
+        api.decode_step(cfg, params, state["cache"], tok, 512)
+
+    for name, fn, reps in (("prefill", prefill, 5), ("decode", decode, 15)):
+        fn()
+        torch.cuda.synchronize()
+        host = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+        rows = profile_device(fn)
+        out[f"qwen_{name}"] = {
+            "host_ms": host, "host_ms_least": min(host),
+            "host_ms_median": statistics.median(host),
+            "device_busy_ms": sum(t for t, _ in rows.values()) / 1e3,
+            "flash_ms": sum(t for k, (t, _) in rows.items() if "flash" in k) / 1e3,
+            "rmsnorm_ms": sum(t for k, (t, _) in rows.items() if "rmsnorm" in k) / 1e3,
+            "kernels": sum(c for _, c in rows.values())}
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,7 +16,9 @@ three paths:
    layers, d 2560, 4,411,417,600 random parameters from a seed; batch 4 ×
    prompt 512 × 16 tokens, then batch 1 × prompt 1000 × 8 tokens; every
    RMSNorm and every prefill attention through the CUDA kernels), checked
-   against the plain path on the same weights;
+   cell by cell (the flash kernel on the q, k, v of all 72 prefill layers,
+   against a rounding-derived bound that a 2^-5 fault exceeds) and against
+   the plain path on the same weights;
 3. serving xlstm-1.3b at full width (the same ``serve``: 48 layers, d 2048,
    6 groups of 7 mLSTM + 1 sLSTM blocks, random weights from a seed; batch
    4 × prompt 512 × 16 tokens, then batch 1 × prompt 1024 × 8 tokens; every
@@ -58,8 +60,8 @@ CONV_TOL = 1e-5          # max |Δ| ≤ CONV_TOL · max(1, |score|)
 THERMAL_Q_MIN = 0.13196942
 # repro's own tolerances for these kernels (tests/test_kernels.py), absolute
 # and relative: |Δ| ≤ tol · (1 + |plain|). The serving kernels are also held
-# to bounds derived from rounding (rms_bound, flash_bound), far tighter at
-# the path's shapes.
+# to bounds derived from rounding (rms_bound here; flash_bound in the flash
+# kernel's ref.py), far tighter at the path's shapes.
 RMS_TOL = 1e-2
 FLASH_TOL = {torch.bfloat16: 0.05, torch.float32: 2e-5}
 BF16_STEP = 2.0 ** -7    # bfloat16 spacing relative to the bottom of a binade
@@ -111,11 +113,12 @@ def _device_us(evt) -> float:
 
 
 def profile_device(fn):
-    """Run ``fn`` under ``torch.profiler`` (CUDA activity only); returns
-    {kernel name: (total device µs, count)} of what ran on the card."""
+    """Run ``fn`` under ``torch.profiler`` (CUDA activity only, events kept
+    across the profiler's cycles); returns {kernel name: (total device µs,
+    count)} of what ran on the card."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     return {e.key: (_device_us(e), int(e.count)) for e in prof.key_averages()}
@@ -155,14 +158,15 @@ def launch_ms(fn, reps: int, symbol: str) -> dict:
 
 
 def kernel_ms(fn, reps: int, symbol: str):
-    """(device ms per launch of the kernel whose name holds ``symbol``, how).
-    From the profiler's kernel durations; where the profiler saw no such
-    kernel, from :func:`queued_ms`."""
+    """(device ms per launch of the kernel whose name holds ``symbol``, how,
+    "launches the profiler recorded / launches timed"). From the profiler's
+    kernel durations; where the profiler saw no such kernel, from
+    :func:`queued_ms`."""
     rows = launch_ms(fn, reps, symbol)
     n = sum(c for _, c in rows.values())
     if n:
-        return sum(ms * c for ms, c in rows.values()) / n, "profiler"
-    return queued_ms(fn, reps), "queued_cuda_events"
+        return sum(ms * c for ms, c in rows.values()) / n, "profiler", f"{n}/{reps}"
+    return queued_ms(fn, reps), "queued_cuda_events", f"0/{reps}"
 
 
 # -- graphs for the sweep comparisons ----------------------------------------
@@ -206,7 +210,10 @@ def sweep_modes(q_grid, n_bursts):
 # RMSNorm cases: name -> (rows, d, dtype). The first four are qwen3-4b's
 # shapes at batch 4 × prompt 512 (ln1/ln2/final, q-norm, k-norm) and in its
 # decode steps; the next four xlstm-1.3b's (b4 × 512, b1 × 1024, decode, and
-# the float32 copy of the model).
+# the float32 copy of the model); the last four reach each of the kernel's
+# paths at its edges (a block's two strided passes past d 4096 or for a d
+# not a whole number of 16-byte chunks, a warp per row, the widest row held
+# in registers).
 RMS_CASES = {
     "prefill_d2560": (2048, 2560, torch.bfloat16),
     "prefill_q_norm": (65536, 128, torch.bfloat16),
@@ -218,12 +225,15 @@ RMS_CASES = {
     "xlstm_f32_prefill_d2048": (2048, 2048, torch.float32),
     "odd_f32": (333, 4100, torch.float32),
     "odd_warp_bf16": (77, 200, torch.bfloat16),
+    "widest_row_f32": (9, 4096, torch.float32),
+    "odd_row_bf16": (7, 1001, torch.bfloat16),
 }
 # Flash cases: name -> (B, Sq, Sk, H, KV, hd, causal, dtype).
 FLASH_CASES = {
     "serve_b4_s512": (4, 512, 512, 32, 8, 128, True, torch.bfloat16),
     "serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
     "hd64": (2, 256, 256, 16, 4, 64, True, torch.bfloat16),
+    "hd112_zamba2_mha": (1, 512, 512, 32, 32, 112, True, torch.bfloat16),
     "noncausal_sk_ne_sq": (2, 100, 300, 8, 2, 128, False, torch.bfloat16),
     "f32_serve_b4_s512": (4, 512, 512, 32, 8, 128, True, torch.float32),
     "f32_serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.float32),
@@ -274,26 +284,13 @@ def rms_bound(want, d: int):
     return rel * want.to(torch.float32).abs() + 1e-6
 
 
-def flash_bound(q, k, v, want, causal: bool):
-    """|Δ| allowed between the bfloat16 flash kernel and its plain version.
-    The kernel rounds each p to bfloat16 before PV (at most 2^-8 relative)
-    and the plain version does not, so their float32 outputs differ by at
-    most 2^-8·A, A = Σ p|v| / Σ p (the plain version run on |v|), plus
-    float32 terms far below 2^-9·A; both outputs round to bfloat16, which
-    may put them one step (2^-7·|o|) apart. Bound: 2^-7·(|plain| + A)."""
-    from repro_torch.kernels.flash_attention.ref import attention_plain
-
-    a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
-    return BF16_STEP * (want.to(torch.float32).abs() + a) + 1e-6
-
-
 def model_kernel_checks(dev):
     """Each serving kernel against its plain version on the card: within
     repro's tolerance and within the rounding bound (bfloat16 flash and
     every RMSNorm); float32 flash within repro's 2e-5, also at the serving
     shapes."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_plain
+    from repro_torch.kernels.flash_attention.ref import attention_plain, flash_bound
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
 
@@ -501,6 +498,64 @@ def serve_parity(cfg, params, dev):
         raise AssertionError(f"the control passed the parity check ({control_min} ≤ "
                              f"{SERVE_REL_LIMIT}): the check does not discriminate")
     return sound
+
+
+FLASH_FAULT = 2.0 ** -5  # the flash cells' control: plain o × (1 + 2^-5) past position 64
+
+
+def qwen_flash_cells(cfg, params, dev):
+    """Every flash cell of both qwen3-4b prefills at full width: q, k and v
+    of all 36 layers captured on the plain path, then the kernel against its
+    plain version on each, held to repro's 0.05 and to
+    :func:`flash_bound`. A control, the plain output × (1 + 2^-5) past
+    position 64 (rounded to bfloat16), must exceed the bound in every
+    cell."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.flash_attention.ops import to_bkv
+    from repro_torch.kernels.flash_attention.ref import attention_plain, flash_bound
+    from repro_torch.models import api
+    from repro_torch.models.common import PLAIN
+
+    out = []
+    for b, p, g in SERVE_REQUESTS:
+        captured = []
+
+        def capture(q, k, v, causal):
+            captured.append((q, k, v, causal))
+            return PLAIN.attention(q, k, v, causal)
+
+        api.prefill(cfg, params, {"tokens": _tokens(cfg, b, p, dev, 23 + b)}, p + g,
+                    dataclasses.replace(PLAIN, attention=capture))
+        shares, faults = [], []
+        while captured:
+            q, k, v, causal = captured.pop(0)
+            qg, kg, vg = to_bkv(q, k, v)
+            got = flash_attention_bkv_cuda(qg, kg, vg, causal=causal)
+            torch.cuda.synchronize()
+            want = attention_plain(qg, kg, vg, causal=causal)
+            _held(got, want, FLASH_TOL[torch.bfloat16] * (1 + want.float().abs()))
+            bound = flash_bound(qg, kg, vg, want, causal)
+            shares.append(_held(got, want, bound)[1])
+            bad = want.to(torch.float32)
+            bad[:, 64:] *= 1.0 + FLASH_FAULT
+            bad = bad.to(want.dtype).to(torch.float32)
+            faults.append(float(((bad - want.to(torch.float32)).abs() / bound)[:, 64:].max()))
+            del q, k, v, qg, kg, vg, got, want, bound, bad
+        out.append({"batch": b, "prompt": p, "cells": len(shares),
+                    "largest_share_of_bound": max(shares), "share_by_cell": shares,
+                    "control_smallest_share": min(faults), "control_share_by_cell": faults})
+    emit({"phase": "qwen_flash_cells_vs_plain", "requests": out,
+          "cells": sum(r["cells"] for r in out),
+          "bound": "bf16 flash 2^-7·(|plain| + A) + 1e-6, A = plain on |v|; and repro's "
+                   "0.05·(1 + |plain|)",
+          "control": "plain o x (1 + 2^-5) past position 64 must use more than the whole "
+                     "bound in every cell"})
+    if [r["cells"] for r in out] != [cfg.n_layers] * len(SERVE_REQUESTS):
+        raise AssertionError(f"captured {[r['cells'] for r in out]} flash cells")
+    blind = [r["control_smallest_share"] for r in out if r["control_smallest_share"] <= 1.0]
+    if blind:
+        raise AssertionError(f"the flash bound does not see a 2^-5 fault: {blind}")
+    return out
 
 
 def serve_trace(cfg, params, dev, request=SERVE_REQUESTS[0]):
@@ -892,6 +947,36 @@ def _bound(nbytes, ops, peak_ops):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def flash_sass(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each flash instantiation of
+    the built library, from ``cuobjdump -sass``: {kernel<hd>: {op: count}}.
+    Raises if the tool is missing or a bfloat16 instantiation has none."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        raise RuntimeError("cuobjdump not found (looked on PATH and in /usr/local/cuda/bin)")
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            m = re.search(r"(flash_(?:mma|f32)_kernel)ILi(\d+)E", head.group(1))
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            if name:
+                counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                counts[name][op.group(1)] += 1
+    bf16 = {k: v for k, v in counts.items() if k.startswith("flash_mma_kernel")}
+    if len(bf16) != 3 or not all(sum(v.values()) for v in bf16.values()):
+        raise AssertionError(f"bf16 flash instantiations without tensor-core SASS: {counts}")
+    return counts
+
+
 def rmsnorm_entry(dev, launches, errs):
     """Times and bounds of the RMSNorm kernel at the serving path's shapes;
     the headline numbers are the [2048, 2560] prefill shape's."""
@@ -906,12 +991,15 @@ def rmsnorm_entry(dev, launches, errs):
         n, d, dtype = RMS_CASES[name]
         x, w = rms_inputs(RMS_CASES[name], dev)
         fn = lambda: rmsnorm_rows_cuda(x, w, 1e-6)  # noqa: E731
-        ms, how = kernel_ms(fn, 20, "rmsnorm_kernel")
-        # a yardstick only: the port never calls it
-        lib = cuda_ms(lambda: F.rms_norm(x, (d,), w.to(dtype), 1e-6), 20)
+        ms, how, seen = kernel_ms(fn, 20, "rmsnorm_")
+        # a yardstick only: the port never calls it; its weight is cast to
+        # x's type once, outside the timing
+        w_lib = w.to(dtype)
+        lib = cuda_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6), 20)
         nbytes = 2 * n * d * x.element_size() + 4 * d
         bound, by = _bound(nbytes, 4 * n * d, PEAK_F32_PER_S)
         by_shape[name] = {"rows": n, "d": d, "ms": ms, "ms_from": how,
+                          "profiled_launches": seen,
                           "wrapper_ms": cuda_ms(fn, 20),
                           "plain_ms": cuda_ms(lambda: rmsnorm_plain(x, w, 1e-6), 20),
                           "bound_ms": bound, "bound_by": by, "library_ms": lib}
@@ -925,7 +1013,8 @@ def rmsnorm_entry(dev, launches, errs):
         "max_abs_err": max(errs.values()),
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
-        "library_call": "torch.nn.functional.rms_norm (weight cast to x's dtype)",
+        "library_call": "torch.nn.functional.rms_norm (weight cast to x's dtype before "
+                        "the timing)",
         "shape": "[2048, 2560] bf16 (ln1/ln2 in the b4 x 512 prefill); others below",
         "by_shape": by_shape,
     }
@@ -944,7 +1033,7 @@ def flash_entry(dev, launches, errs):
         b, sq, sk, h, kv, hd, causal, _ = FLASH_CASES[name]
         q, k, v = flash_inputs(FLASH_CASES[name], dev)
         fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=causal)  # noqa: E731
-        ms, how = kernel_ms(fn, 10, "flash_kernel")
+        ms, how, seen = kernel_ms(fn, 10, "flash_mma_kernel")
         # the library call takes [B, H, S, hd]; the layout change is made
         # once, outside the timing
         ql = q.reshape(b, kv, sq, h // kv, hd).permute(0, 1, 3, 2, 4).reshape(b, h, sq, hd)
@@ -956,7 +1045,8 @@ def flash_entry(dev, launches, errs):
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bound, by = _bound(nbytes, flops, PEAK_BF16_PER_S)
         by_shape[name] = {"shape": [b, sq, sk, h, kv, hd], "flops": flops, "ms": ms,
-                          "ms_from": how, "wrapper_ms": cuda_ms(fn, 10),
+                          "ms_from": how, "profiled_launches": seen,
+                          "wrapper_ms": cuda_ms(fn, 10),
                           "plain_ms": cuda_ms(
                               lambda: attention_plain(q, k, v, causal=causal), 5),
                           "bound_ms": bound, "bound_by": by, "library_ms": lib}
@@ -965,6 +1055,8 @@ def flash_entry(dev, launches, errs):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:28",
+        "route_note": "bf16 on mma.sync tensor cores (flash_mma_kernel); float32 on the CUDA "
+                      "cores (flash_f32_kernel), for checks",
         "launches": sum(n["flash_attention"] for n in launches.values()),
         "max_abs_err": max(errs.values()),
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
@@ -1007,9 +1099,10 @@ def main() -> int:
 
     # -- phase 1: card and build ----------------------------------------------
     t0 = time.perf_counter()
-    load_library()
+    lib = load_library()
     emit({"phase": "build", "device": torch.cuda.get_device_name(0),
-          "nvidia_smi": card, "build_s": time.perf_counter() - t0})
+          "nvidia_smi": card, "build_s": time.perf_counter() - t0,
+          "flash_tensor_core_sass": flash_sass(lib._name)})
 
     sweep_err = {"max_abs_err": 0.0, "bests_mismatches": 0, "comparisons": 0}
 
@@ -1154,18 +1247,20 @@ def main() -> int:
           "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
                                    key=lambda x: -x[1])[:6]})
 
-    # -- phases 7-10: the serving kernels, the serving path, parity, trace ----
+    # -- phases 7-11: the serving kernels, the serving path, every flash cell,
+    # parity, trace ------------------------------------------------------------
     from repro_torch.configs import get_config
 
     rms_err, flash_err = model_kernel_checks(dev)
     cfg = get_config(SERVE_ARCH)
     params, serve_launches = serve_path(dev, cfg, SERVE_REQUESTS, *qwen_expected(cfg))
+    qwen_flash_cells(cfg, params, dev)
     serve_parity(cfg, params, dev)
     serve_trace(cfg, params, dev)
     del params
     torch.cuda.empty_cache()
 
-    # -- phases 11-16: the xLSTM path: mLSTM kernel, serving, checks, trace ---
+    # -- phases 12-17: the xLSTM path: mLSTM kernel, serving, checks, trace ---
     mlstm_err = mlstm_kernel_checks(dev)
     xcfg = get_config(XLSTM_ARCH)
     xparams, xlstm_launches = serve_path(dev, xcfg, XLSTM_REQUESTS, *xlstm_expected(xcfg))
@@ -1177,7 +1272,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_by_path = {SERVE_ARCH: serve_launches, XLSTM_ARCH: xlstm_launches}
 
-    # -- phase 17: times and bounds at the main paths' shapes ------------------
+    # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and
     # ``plain_ms`` are per call as a caller sees them, host work included.
     g, csr, qmn, grid = full["thermal"]
@@ -1193,7 +1288,7 @@ def main() -> int:
         a = device_slots(csr, cm, dev)
         b = torch.as_tensor(budget).to(dev)
         fn = lambda: sweep_columns_cuda(*a, b, exact_k=exact_k, combine_max=cmax)  # noqa: E731
-        ms, how = kernel_ms(fn, 3, "sweep_kernel")
+        ms, how, seen = kernel_ms(fn, 3, "sweep_kernel")
         ms_from.add(how)
         wms = cuda_ms(fn, 3)
         pms = cuda_ms(lambda: sweep_columns_plain(*a, b, exact_k=exact_k, combine_max=cmax), 1)
@@ -1203,7 +1298,8 @@ def main() -> int:
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F64_PER_S
         by = "operations" if t_ops >= t_bytes else "bytes"
         bound = max(t_bytes, t_ops) * 1e3
-        by_mode[objective] = {"nq": nq, "ms": ms, "wrapper_ms": wms, "plain_ms": pms,
+        by_mode[objective] = {"nq": nq, "ms": ms, "profiled_launches": seen,
+                              "wrapper_ms": wms, "plain_ms": pms,
                               "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops}
         for key, v in (("ms", ms), ("wrapper_ms", wms), ("plain_ms", pms), ("bound_ms", bound)):
             totals[key] += v
@@ -1224,13 +1320,14 @@ def main() -> int:
     conv_by_n = {}
     for n, x in windows.items():
         fn = lambda: conv_window_scores_cuda(x, *wl)  # noqa: E731
-        ms, how = kernel_ms(fn, 20, "conv_window_kernel")
+        ms, how, seen = kernel_ms(fn, 20, "conv_window_kernel")
         wms = cuda_ms(fn, 20)
         pms = cuda_ms(lambda: conv_window_scores_plain(x, *wl), 20)
         nbytes = n * 144 * 4 + 1265 * 4 + n * 4
         ops = n * 2 * (10 * 10 * 8 * 9 + 3 * 3 * 16 * 72 + 16)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
-        conv_by_n[n] = {"ms": ms, "ms_from": how, "wrapper_ms": wms, "plain_ms": pms,
+        conv_by_n[n] = {"ms": ms, "ms_from": how, "profiled_launches": seen,
+                        "wrapper_ms": wms, "plain_ms": pms,
                         "bound_ms": max(t_bytes, t_ops) * 1e3,
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                         "max_abs_err": conv_err[n]}

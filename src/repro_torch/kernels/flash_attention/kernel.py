@@ -15,7 +15,10 @@ from .._build import check, load_library
 
 __all__ = ["flash_attention_bkv_cuda", "HEAD_DIMS"]
 
-HEAD_DIMS = (64, 128)
+# The head widths each element type's kernel is built for: bfloat16 runs on
+# the tensor cores (any multiple of 16 would do; these are the zoo's), float32
+# on the CUDA cores.
+HEAD_DIMS = {torch.bfloat16: (64, 112, 128), torch.float32: (64, 128)}
 # The element types the kernel takes, by the code its C entry point reads.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -23,7 +26,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True) -> torch.Tensor:
     """q: [BKV, Sq, G, hd]; k, v: [BKV, Sk, hd], all bfloat16 or all float32
-    on one card, hd 64 or 128 → o like q; the same contract as
+    on one card, hd in ``HEAD_DIMS[dtype]`` → o like q; the same contract as
     :func:`.ref.attention_plain`. Any Sq and Sk ≥ 1."""
     dev = q.device
     if dev.type != "cuda":
@@ -37,8 +40,9 @@ def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     sk = int(k.shape[1])
     if k.shape[0] != bkv or k.shape[2] != hd:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not supported; the kernel takes {HEAD_DIMS}")
+    if hd not in HEAD_DIMS[q.dtype]:
+        raise ValueError(f"head dim {hd} not supported in {q.dtype}; the kernel takes "
+                         + "; ".join(f"{t}: {dims}" for t, dims in HEAD_DIMS.items()))
     if sk < 1:
         raise ValueError("attention over zero keys")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -48,6 +52,8 @@ def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
             raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
+        if q.dtype == torch.bfloat16 and t.data_ptr() % 16:  # 16-byte cp.async copies
+            raise ValueError(f"{name}: must start on a 16-byte boundary")
     o = torch.empty_like(q)
     if bkv == 0 or sq == 0 or g == 0:
         return o

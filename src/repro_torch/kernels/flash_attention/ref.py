@@ -5,9 +5,10 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["attention_plain", "NEG_INF"]
+__all__ = ["attention_plain", "flash_bound", "NEG_INF", "BF16_STEP"]
 
 NEG_INF = -1e30
+BF16_STEP = 2.0 ** -7    # bfloat16 spacing relative to the bottom of a binade
 
 
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,3 +27,15 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     return torch.einsum("bqgk,bkh->bqgh", p, vf).to(q.dtype)
+
+
+def flash_bound(q, k, v, want, causal: bool) -> torch.Tensor:
+    """|Δ| allowed between the bfloat16 flash kernel and its plain version
+    ``want`` on q, k, v (kernel layout). The kernel rounds each p to
+    bfloat16 before PV (at most 2^-8 relative) and the plain version does
+    not, so their float32 outputs differ by at most 2^-8·A, A = Σ p|v| / Σ p
+    (the plain version run on |v|), plus float32 terms far below 2^-9·A;
+    both outputs round to bfloat16, which may put them one step (2^-7·|o|)
+    apart. Bound: 2^-7·(|plain| + A) + 1e-6, float32, shaped like q."""
+    a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
+    return BF16_STEP * (want.to(torch.float32).abs() + a) + 1e-6

@@ -18,11 +18,11 @@ __all__ = ["rmsnorm"]
 
 def rmsnorm(x, w, eps: float = 1e-5, *, device="cuda") -> torch.Tensor:
     """x: [..., d]; w: [d] → [..., d] in x's dtype, on ``device``."""
-    dev = resolve_device(device)
-    x = torch.as_tensor(x, device=dev)
-    w = torch.as_tensor(w, dtype=torch.float32, device=dev).contiguous()
-    if dev.type != "cuda":
-        return rmsnorm_plain(x, w, eps)
-    shape = x.shape
-    y = rmsnorm_rows_cuda(x.reshape(-1, shape[-1]).contiguous(), w, eps)
-    return y.reshape(shape)
+    # The model's call passes a card's tensor and that card: no conversion.
+    if not (isinstance(x, torch.Tensor) and x.is_cuda and x.device == device):
+        dev = resolve_device(device)
+        x = torch.as_tensor(x, device=dev)
+        if dev.type != "cuda":
+            return rmsnorm_plain(x, torch.as_tensor(w, dtype=torch.float32, device=dev), eps)
+    w = torch.as_tensor(w, dtype=torch.float32, device=x.device)
+    return rmsnorm_rows_cuda(x.contiguous(), w.contiguous(), eps)

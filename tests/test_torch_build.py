@@ -6,6 +6,7 @@ must collect every kernel's source under one content hash, with a C
 signature declared for each launcher.
 """
 
+import re
 import shutil
 
 import pytest
@@ -13,7 +14,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv_window.kernel import conv_window_scores_cuda
-from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, flash_attention_bkv_cuda
 from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
 
@@ -49,6 +50,19 @@ def test_model_kernel_signatures(name, n_args, source):
     assert len(params) == n_args
     float_scalar = [p[0] == "float" and "*" not in "".join(p) for p in params]
     assert [a is _build.ctypes.c_float for a in argtypes] == float_scalar
+
+
+def test_flash_head_dims_match_the_instantiations():
+    """The wrapper's head widths per element type are the ones the C entry
+    point dispatches to: bf16 64, 112 and 128 on the tensor cores, float32
+    64 and 128 on the CUDA cores."""
+    text = (_build._PKG / "flash_attention/csrc/flash_attention.cu").read_text()
+    body = text[text.index('extern "C" int flash_attention_launch('):]
+    built = {code: tuple(sorted(int(h) for h in re.findall(rf"dtype == {code} && hd == (\d+)",
+                                                          body)))
+             for code in (0, 1)}
+    assert built == {0: HEAD_DIMS[torch.float32], 1: HEAD_DIMS[torch.bfloat16]}
+    assert 112 in HEAD_DIMS[torch.bfloat16] and 112 not in HEAD_DIMS[torch.float32]
 
 
 def test_missing_nvcc_raises():

@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.flash_attention.kernel import flash_attention_bkv
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import attention_ref
 from repro.models.attention import blockwise_attention
 
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ops import from_bkv, to_bkv
-from repro_torch.kernels.flash_attention.ref import attention_plain
+from repro_torch.kernels.flash_attention.ref import attention_plain, flash_bound
 
 TOL = {torch.bfloat16: 0.05, torch.float32: 2e-5}
 JAX_DTYPE = {torch.bfloat16: jnp.bfloat16, torch.float32: jnp.float32}
@@ -33,6 +34,7 @@ CASES = {
     "mha_hd128": (1, 48, 48, 2, 2, 128, True),
     "noncausal_sk_ne_sq": (2, 24, 56, 4, 4, 64, False),
     "noncausal_gqa_tail": (1, 40, 24, 8, 2, 32, False),
+    "hd112_mha": (1, 48, 48, 2, 2, 112, True),  # Zamba2's shared attention width
 }
 
 
@@ -112,3 +114,29 @@ def test_heads_not_a_multiple_of_kv_heads_raise():
     (q, k, v), _ = inputs((1, 8, 8, 3, 2, 16, True), torch.float32)
     with pytest.raises(ValueError, match="multiple"):
         ops.flash_attention(q, k, v, device="cpu")
+
+
+def test_flash_bound_holds_the_kernels_rounding_and_rejects_the_control():
+    """``flash_bound`` (the bf16 kernel's check on the card) admits the plain
+    path against itself and ``repro``'s Pallas kernel, which rounds p to
+    bfloat16 before PV as the CUDA kernel does; it rejects the fault control
+    of the per-layer check, the plain output × (1 + 2^-5) past position 64."""
+    b, s, h, kv, hd = 2, 160, 8, 2, 64
+    (q, k, v), _ = inputs((b, s, s, h, kv, hd, True), torch.bfloat16, seed=5)
+    qg, kg, vg = to_bkv(q, k, v)
+    want = attention_plain(qg, kg, vg, causal=True)
+    bound = flash_bound(qg, kg, vg, want, True)
+    assert bound.shape == want.shape and bound.dtype == torch.float32
+
+    def share(got):
+        return ((got.to(torch.float32) - want.to(torch.float32)).abs() / bound)[:, 64:].max()
+
+    assert share(attention_plain(qg, kg, vg, causal=True)) == 0
+    as_jax = [jnp.asarray(t.to(torch.float32).numpy()).astype(jnp.bfloat16)
+              for t in (qg, kg, vg)]
+    pallas = flash_attention_bkv(*as_jax, causal=True, blk_q=32, blk_k=32, interpret=True)
+    got = torch.from_numpy(np.array(pallas.astype(jnp.float32)))
+    assert 0 < share(got) <= 1
+    bad = want.to(torch.float32)
+    bad[:, 64:] *= 1.0 + 2.0 ** -5
+    assert share(bad.to(torch.bfloat16)) > 1
