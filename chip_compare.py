@@ -5,7 +5,13 @@
 
 Imports ``repro_torch`` from ``<checkout root>/src`` (building its kernels
 there), then prints one JSON line: ``nvcc -Xptxas -v``'s registers and
-spills of the flash and RMSNorm kernels; the flash kernel's device time per
+spills of the flash, RMSNorm, mLSTM and sweep kernels; the chunked-mLSTM
+kernel's device time per call (its stages summed, ``torch.profiler``) and
+its wrapper's time at xlstm-1.3b's two prefill shapes (bf16); the sweep
+kernel's device and wrapper time in each of the head count's three modes
+on the full THERMAL graph, and the head count's solve time (Q_min, the
+9-point Q grid, exact-K; least and median of 3 warm runs, host clock); the
+flash kernel's device time per
 launch (``torch.profiler``) and its wrapper's time beside
 ``scaled_dot_product_attention`` at qwen3-4b's two prefill shapes; the
 RMSNorm kernel's device time, and the host-bound times (least and median of
@@ -56,8 +62,10 @@ def main() -> int:
                                    "--format=csv,noheader"], capture_output=True,
                                   text=True, timeout=60).stdout.strip()}
     ptxas = {}
-    for src in ("flash_attention/csrc/flash_attention.cu", "rmsnorm/csrc/rmsnorm.cu"):
-        r = subprocess.run([_build._nvcc(), *_build._FLAGS, "-Xptxas", "-v", "-c",
+    for src in ("flash_attention/csrc/flash_attention.cu", "rmsnorm/csrc/rmsnorm.cu",
+                "mlstm_chunk/csrc/mlstm_chunk.cu", "partition_sweep/csrc/partition_sweep.cu"):
+        extra = _build._EXTRA.get(Path(src).name, [])
+        r = subprocess.run([_build._nvcc(), *_build._FLAGS, *extra, "-Xptxas", "-v", "-c",
                             str(_build._PKG / src),
                             "-o", str(_build.BUILD_ROOT / "ptxas_probe.o")],
                            capture_output=True, text=True, timeout=600)
@@ -68,6 +76,7 @@ def main() -> int:
             elif entry and ("registers" in line or "spill" in line):
                 ptxas.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     out["ptxas"] = ptxas
+    out.update(mlstm_and_sweep(dev))
 
     def host_ms(fn, reps=200, rounds=15):
         xs = sorted(cuda_ms(fn, reps) for _ in range(rounds))
@@ -146,6 +155,63 @@ def main() -> int:
             "kernels": sum(c for _, c in rows.values())}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def mlstm_and_sweep(dev) -> dict:
+    """The chunked-mLSTM kernel at xlstm-1.3b's prefill shapes, the sweep
+    kernel in the head count's three modes, and the head count's solve."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import MLSTM_CASES, cuda_ms, kernel_ms, launch_ms, mlstm_inputs
+
+    from repro_torch.core import partition_torch as pt
+    from repro_torch.core.apps import headcount as hc
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.kernels.partition_sweep.ops import budget_lanes, device_slots
+
+    out = {}
+    for name in ("serve_b4_s512", "serve_b1_s1024"):
+        args = mlstm_inputs(MLSTM_CASES[name], dev)
+        fn = lambda: mlstm_chunk_bh_cuda(*args, chunk=128)  # noqa: E731
+        stages = launch_ms(fn, 10, "mlstm_")
+        out[f"mlstm_{name}"] = {"ms": sum(t for t, _ in stages.values()),
+                                "stages": {k[:60]: t for k, (t, _) in stages.items()},
+                                "wrapper_ms": cuda_ms(fn, 10)}
+        del args
+    g = hc.build_graph(hc.THERMAL)
+    csr, cm = g.to_csr_arrays(), hc.paper_cost_model()
+    qmn = pt.q_min(g, cm, device=dev)
+    grid = [qmn] + [float(q) for q in np.geomspace(qmn * 1.01, g.total_task_cost() * 1.05, 7)] + [None]
+    a = device_slots(csr, cm, dev)
+    sweep = {}
+    for mode, qv, k in (("minimax", (), None), ("sum", grid, None), ("exact_k", (qmn,), 18)):
+        budget, exact_k, cmax = budget_lanes(qv, mode, k, "sum")
+        b = torch.as_tensor(budget).to(dev)
+        fn = lambda: sweep_columns_cuda(*a, b, exact_k=exact_k, combine_max=cmax)  # noqa: E731
+        ms, how, seen = kernel_ms(fn, 3, "sweep_kernel")
+        sweep[mode] = {"nq": len(budget), "ms": ms, "ms_from": how, "profiled": seen,
+                       "us_per_column": ms * 1e3 / g.n_tasks, "wrapper_ms": cuda_ms(fn, 3)}
+    out["sweep_thermal"] = {**sweep, "ms_3_modes": sum(v["ms"] for v in sweep.values()),
+                            "wrapper_ms_3_modes": sum(v["wrapper_ms"] for v in sweep.values())}
+
+    def solve():
+        q0 = pt.q_min(g, cm, device=dev)
+        res = pt.sweep(g, cm, grid, device=dev)
+        pt.exact_k_partition(g, cm, len(res.bounds(0)), q0, device=dev)
+
+    solve()
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    out["headcount_solve_s"] = {"runs": secs, "least": min(secs),
+                                "median": statistics.median(secs)}
+    return out
 
 
 if __name__ == "__main__":

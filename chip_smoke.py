@@ -205,6 +205,35 @@ def sweep_modes(q_grid, n_bursts):
     ]
 
 
+def spread_graph(rng: random.Random, gb, n: int):
+    """An application of exactly ``n`` tasks whose reads reach back to any
+    earlier packet, so that loads and freed stores span long i-ranges."""
+    b = gb()
+    b.packet("e0", 512, external=True)
+    avail = ["e0"]
+    for t in range(n):
+        reads = rng.sample(avail, min(len(avail), rng.randint(1, 3)))
+        b.packet(f"p{t}", 2 ** rng.randint(3, 10), keep=rng.random() < 0.2)
+        b.task(f"t{t}", reads=reads, writes=[f"p{t}"], cost=rng.uniform(0.01, 10.0))
+        avail.append(f"p{t}")
+    return b.build()
+
+
+def slice_crossings(csr, lay) -> tuple:
+    """(read slots whose loads, and read slots whose freed stores, cover
+    i-ranges that cross a boundary between two CTAs' slices of ``lay``)."""
+    ptr = csr.read_ptr.astype(np.int64)
+    task = np.repeat(np.arange(1, csr.n_tasks + 1), np.diff(ptr))
+
+    def cta(i):
+        return (np.asarray(i) - 1) // lay.slice
+
+    loads = (task - 1 > csr.read_lt) & (cta(csr.read_lt + 1) != cta(task - 1))
+    freed = ((csr.read_linf == task) & (csr.read_writer >= 1)
+             & (cta(np.maximum(np.minimum(csr.read_writer, task - 1), 1)) > 0))
+    return int(loads.sum()), int(freed.sum())
+
+
 # -- the serving path's kernels ----------------------------------------------
 
 # RMSNorm cases: name -> (rows, d, dtype). The first four are qwen3-4b's
@@ -615,7 +644,11 @@ XLSTM_F32_REL_LIMIT = 3e-3
 # mLSTM cases: name -> (B·H, S, hd, chunk, dtype, inputs). "model": q, v and
 # the gates ~ N(0, 1), k ~ N(0, 1/hd), as the projections of a normed
 # activation give them; "test": as tests/test_kernels.py draws them (q, k, v
-# at scale 0.5, f + 2); "saturated": i = 5, f = −20.
+# at scale 0.5, f + 2); "saturated": i = 5, f = −20; "split_stress": the
+# bf16 kernel's three-piece split of its float32 operands under a C of wide
+# dynamic range: i uniform in [−28, 0] and f = 12 (no decay), so gsrc spans
+# about 2^-40 .. 1 (2^±20 about its middle) and C keeps every chunk, and v
+# scaled by 2^u, u uniform in −12 .. 11.
 MLSTM_CASES = {
     "serve_b4_s512": (16, 512, 1024, 128, torch.bfloat16, "model"),
     "serve_b1_s1024": (4, 1024, 1024, 128, torch.bfloat16, "model"),
@@ -627,6 +660,7 @@ MLSTM_CASES = {
     "f32_s64_hd32_c64": (4, 64, 32, 64, torch.float32, "test"),
     "bf16_s100_hd64": (4, 100, 64, 128, torch.bfloat16, "test"),
     "saturated": (1, 128, 32, 64, torch.float32, "saturated"),
+    "split_stress": (4, 512, 1024, 128, torch.bfloat16, "split_stress"),
 }
 FAULT = 2.0 ** -6   # the deliberate fault: y × (1 + FAULT) past position 64
 
@@ -636,10 +670,15 @@ def mlstm_inputs(case, dev, seed=0):
     bh, s, hd, _, dtype, kind = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
-    if kind == "model":
+    if kind in ("model", "split_stress"):
         q, k, v = (_randn(gen, (bh, s, hd), f32, dev) for _ in range(3))
         k = k * hd ** -0.5
         i_pre, f_pre = _randn(gen, (bh, s), f32, dev), _randn(gen, (bh, s), f32, dev)
+        if kind == "split_stress":
+            v = v * torch.exp2(torch.randint(-12, 12, (bh, s, hd), generator=gen,
+                                             device=dev).to(f32))
+            i_pre = -28.0 * torch.rand((bh, s), generator=gen, device=dev)
+            f_pre = torch.full((bh, s), 12.0, device=dev)
     else:
         scale = 1.0 if kind == "saturated" else 0.5
         q, k, v = (_randn(gen, (bh, s, hd), f32, dev, scale) for _ in range(3))
@@ -902,9 +941,24 @@ def mlstm_work(bh, s, hd, L, elt):
     return nbytes, ops
 
 
+def mlstm_split_work(bh, s, hd, L):
+    """The bfloat16 kernel's operations by the rate they can run at:
+    (products of a float32 operand, three bf16 passes on the tensor cores:
+    the C update, q·C past the first chunk and W·v; q·kᵀ, exact in one
+    pass; q·n and the n update, on the CUDA cores)."""
+    nc = s // L
+    split = bh * (nc * 2 * L * hd * hd + (nc - 1) * 2 * L * hd * hd + nc * L * (L + 1) * hd)
+    return split, bh * nc * L * (L + 1) * hd, bh * nc * 4 * L * hd
+
+
 def mlstm_entry(dev, launches, errs):
-    """Times and bound of the mLSTM kernel at the two prefill shapes; the
-    headline numbers are the b4 × 512 request's."""
+    """Times and bounds of the mLSTM kernel at the two prefill shapes; the
+    headline numbers are the b4 × 512 request's. ``bound_ms`` counts the
+    split products at the bf16 tensor-core rate over three passes, q·kᵀ at
+    that rate in one, the rest on the CUDA cores; ``bound_ms_f32_cuda_cores``
+    is the earlier figure, every operation at the float32 CUDA-core rate."""
+    import re
+
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_plain
 
@@ -915,17 +969,28 @@ def mlstm_entry(dev, launches, errs):
         args = mlstm_inputs(case, dev)
         fn = lambda: mlstm_chunk_bh_cuda(*args, chunk=chunk)  # noqa: E731
         # each of the three stages runs once per call
-        stages = {k[:60]: v for k, v in launch_ms(fn, 10, "mlstm_").items()}
+        stages = {}
+        for k, v in launch_ms(fn, 10, "mlstm_").items():
+            short = re.search(r"mlstm_(?:gate|w|state)(?:_f32|_mma)?_kernel", k)
+            stages[short.group(0) if short else k[:60]] = v
         ms, how = (sum(t for t, _ in stages.values()), "profiler") if stages else (
             queued_ms(fn, 10), "queued_cuda_events")
-        nbytes, ops = mlstm_work(bh, s, hd, min(chunk, s), args[0].element_size())
-        bound, by = _bound(nbytes, ops, PEAK_F32_PER_S)
+        L = min(chunk, s)
+        nbytes, ops = mlstm_work(bh, s, hd, L, args[0].element_size())
+        split, single, cuda = mlstm_split_work(bh, s, hd, L)
+        t_ops = (3 * split + single) / PEAK_BF16_PER_S + cuda / PEAK_F32_PER_S
+        t_bytes = nbytes / PEAK_BYTES_PER_S
         by_shape[name] = {"shape": [bh, s, hd, chunk], "ops": ops, "bytes": nbytes, "ms": ms,
                           "ms_from": how, "stages_ms": {k: t for k, (t, _) in stages.items()},
                           "stage_launches_seen_of_10": {k: c for k, (_, c) in stages.items()},
                           "wrapper_ms": cuda_ms(fn, 10),
                           "plain_ms": cuda_ms(lambda: mlstm_chunk_plain(*args, chunk=chunk), 3),
-                          "bound_ms": bound, "bound_by": by, "library_ms": None}
+                          "bound_ms": max(t_bytes, t_ops) * 1e3,
+                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                          "bound_ops": {"split_3_pass_bf16": split, "bf16_1_pass": single,
+                                        "f32_cuda_cores": cuda},
+                          "bound_ms_f32_cuda_cores": _bound(nbytes, ops, PEAK_F32_PER_S)[0],
+                          "library_ms": None}
         del args
     head = by_shape["serve_b4_s512"]
     return {
@@ -933,9 +998,12 @@ def mlstm_entry(dev, launches, errs):
         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:27",
         "launches": sum(n["mlstm_chunk"] for n in launches.values()),
-        "max_abs_err": max(errs.values()),
+        # y at the main path's inputs ("model"); split_stress's |y| reaches 2^13
+        "max_abs_err": max(e for name, e in errs.items() if MLSTM_CASES[name][5] == "model"),
+        "max_abs_err_by_case": errs,
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")},
+                                "bound_by", "library_ms", "stages_ms",
+                                "bound_ms_f32_cuda_cores")},
         "library_note": "none: no single PyTorch call computes the chunked mLSTM cell",
         "shape": "B·H 16, S 512, hd 1024, L 128, bf16 (b4 x 512 prefill); B·H 4 x 1024 below",
         "by_shape": by_shape,
@@ -947,9 +1015,10 @@ def _bound(nbytes, ops, peak_ops):
     return max(t_bytes, t_ops) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flash_sass(lib_path) -> dict:
-    """Tensor-core instructions (HMMA, HGMMA) in each flash instantiation of
-    the built library, from ``cuobjdump -sass``: {kernel<hd>: {op: count}}.
+def tensor_core_sass(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) in each flash and mLSTM
+    instantiation of the built library, from ``cuobjdump -sass``:
+    {"flash": {kernel<hd>: {op: count}}, "mlstm": {kernel: {op: count}}}.
     Raises if the tool is missing or a bfloat16 instantiation has none."""
     import re
     import shutil
@@ -959,21 +1028,30 @@ def flash_sass(lib_path) -> dict:
         raise RuntimeError("cuobjdump not found (looked on PATH and in /usr/local/cuda/bin)")
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    counts, name = {}, None
+    counts = {"flash": {}, "mlstm": {}}
+    entry = None
     for line in sass.splitlines():
         head = re.search(r"Function : (\S+)", line)
         if head:
-            m = re.search(r"(flash_(?:mma|f32)_kernel)ILi(\d+)E", head.group(1))
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
-            if name:
-                counts[name] = {"HMMA": 0, "HGMMA": 0}
-        elif name:
+            f = re.search(r"(flash_(?:mma|f32)_kernel)ILi(\d+)E", head.group(1))
+            m = re.search(r"(mlstm_(?:gate|w|state)(?:_f32|_mma)?_kernel)", head.group(1))
+            entry = None
+            if f:
+                entry = counts["flash"].setdefault(f"{f.group(1)}<{f.group(2)}>",
+                                                   {"HMMA": 0, "HGMMA": 0})
+            elif m:
+                entry = counts["mlstm"].setdefault(m.group(1), {"HMMA": 0, "HGMMA": 0})
+        elif entry is not None:
             op = re.search(r"\b(HGMMA|HMMA)\.", line)
             if op:
-                counts[name][op.group(1)] += 1
-    bf16 = {k: v for k, v in counts.items() if k.startswith("flash_mma_kernel")}
-    if len(bf16) != 3 or not all(sum(v.values()) for v in bf16.values()):
+                entry[op.group(1)] += 1
+    flash_bf16 = {k: v for k, v in counts["flash"].items() if k.startswith("flash_mma_kernel")}
+    if len(flash_bf16) != 3 or not all(sum(v.values()) for v in flash_bf16.values()):
         raise AssertionError(f"bf16 flash instantiations without tensor-core SASS: {counts}")
+    mlstm_bf16 = {k: v for k, v in counts["mlstm"].items() if k.endswith("_mma_kernel")}
+    if sorted(mlstm_bf16) != ["mlstm_state_mma_kernel", "mlstm_w_mma_kernel"] or not all(
+            sum(v.values()) for v in mlstm_bf16.values()):
+        raise AssertionError(f"bf16 mLSTM kernels without tensor-core SASS: {counts}")
     return counts
 
 
@@ -1100,9 +1178,10 @@ def main() -> int:
     # -- phase 1: card and build ----------------------------------------------
     t0 = time.perf_counter()
     lib = load_library()
+    sass = tensor_core_sass(lib._name)
     emit({"phase": "build", "device": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "build_s": time.perf_counter() - t0,
-          "flash_tensor_core_sass": flash_sass(lib._name)})
+          "flash_tensor_core_sass": sass["flash"], "mlstm_tensor_core_sass": sass["mlstm"]})
 
     sweep_err = {"max_abs_err": 0.0, "bests_mismatches": 0, "comparisons": 0}
 
@@ -1153,6 +1232,60 @@ def main() -> int:
             n_checked += 1
     emit({"phase": "sweep_vs_plain_on_card", "graphs": [c[0] for c in cases],
           "comparisons": n_checked, "parity": "bitwise"})
+
+    # -- phase 2b: the edges of the sweep's cluster layout ---------------------
+    # Each case must reach the edge it names; every table bitwise.
+    from repro_torch.kernels._build import smem_optin
+    from repro_torch.kernels.partition_sweep.kernel import sweep_layout
+
+    limit = smem_optin(0)
+    erng = random.Random(17)
+    one = GraphBuilder()
+    one.packet("x", 64, external=True)
+    one.task("t0", reads=["x"], writes=[], cost=1.5)
+    spread45 = spread_graph(erng, GraphBuilder, 45)
+    spread1001 = spread_graph(erng, GraphBuilder, 1001)
+    ecost = CostModel(0.3, LinearTransfer(0.02, 1e-4), LinearTransfer(0.05, 2e-4))
+    thermal = hc.build_graph(hc.THERMAL)
+    t_grid = tuple(float(q) for q in np.geomspace(0.132, thermal.total_task_cost() * 1.05, 96))
+    edges = [  # (case, graph, cost, modes, what the layout must show)
+        ("n1_below_cluster", one.build(), ecost, None, "n < cluster"),
+        ("n3_below_cluster", spread_graph(erng, GraphBuilder, 3), ecost, None, "n < cluster"),
+        ("n45_not_multiple_of_slice", spread45, ecost, None, "n % slice, crossings"),
+        ("n1001_not_multiple_of_slice", spread1001, ecost, None, "n % slice, crossings"),
+        ("exact_k_41_lanes_n45", spread45, ecost,
+         [("exact_k_sum", "exact_k", (0.5 * spread45.total_task_cost(),), 40, "sum"),
+          ("exact_k_max", "exact_k", (0.5 * spread45.total_task_cost(),), 40, "max")],
+         "lanes > warps, crossings"),
+        ("thermal_96_lane_grid", thermal, cm, [("sum", "sum", t_grid, None, "sum")],
+         "dp in device memory"),
+    ]
+    edge_rows = []
+    for name, g, cost, modes, edge in edges:
+        csr = g.to_csr_arrays()
+        if modes is None:
+            e_app = g.total_task_cost()
+            modes = sweep_modes((None, 0.0, 0.3 * e_app, 0.6 * e_app, 1.1 * e_app),
+                                max(1, g.n_tasks // 3))
+        for mode in modes:
+            budget, _, _ = budget_lanes(mode[2], mode[1], mode[3], mode[4])
+            lay = sweep_layout(g.n_tasks, len(budget), limit)
+            crossings = slice_crossings(csr, lay)
+            reached = {"n < cluster": g.n_tasks < lay.cluster,
+                       "n % slice, crossings": (g.n_tasks % lay.slice != 0
+                                                and min(crossings) > 0),
+                       "lanes > warps, crossings": len(budget) > 32 and min(crossings) > 0,
+                       "dp in device memory": not lay.dp_in_smem}[edge]
+            if not reached:
+                raise AssertionError(f"sweep case {name} misses its edge ({edge}): {lay}, "
+                                     f"crossings {crossings}")
+            sweep_pair(csr, cost, mode, dev)
+            edge_rows.append({"case": name, "mode": mode[0], "n": g.n_tasks, "nq": len(budget),
+                              "cluster": lay.cluster, "slice": lay.slice,
+                              "dp_in_smem": lay.dp_in_smem,
+                              "load_and_free_crossings": list(crossings)})
+    emit({"phase": "sweep_cluster_edges_vs_plain_on_card", "cases": edge_rows,
+          "parity": "bitwise"})
 
     # -- phase 3: full head count, kernel on the card vs plain on the CPU ------
     full = {}
@@ -1298,9 +1431,12 @@ def main() -> int:
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F64_PER_S
         by = "operations" if t_ops >= t_bytes else "bytes"
         bound = max(t_bytes, t_ops) * 1e3
-        by_mode[objective] = {"nq": nq, "ms": ms, "profiled_launches": seen,
-                              "wrapper_ms": wms, "plain_ms": pms,
-                              "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops}
+        lay = sweep_layout(n, nq, limit)
+        by_mode[objective] = {"nq": nq, "ms": ms, "us_per_column": ms * 1e3 / n,
+                              "profiled_launches": seen, "wrapper_ms": wms, "plain_ms": pms,
+                              "bound_ms": bound, "bound_by": by, "bytes": nbytes, "ops": ops,
+                              "layout": {"cluster": lay.cluster, "slice": lay.slice,
+                                         "dp_in_smem": lay.dp_in_smem}}
         for key, v in (("ms", ms), ("wrapper_ms", wms), ("plain_ms", pms), ("bound_ms", bound)):
             totals[key] += v
         bound_time[by] += bound
@@ -1312,6 +1448,7 @@ def main() -> int:
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],
         **totals, "ms_from": sorted(ms_from),
+        "us_per_column": {m: v["us_per_column"] for m, v in by_mode.items()},
         "bound_by": max(bound_time, key=bound_time.get), "library_ms": None,
         "library_note": "no single PyTorch call computes the fused sweep + DP",
         "shape": "THERMAL N=5458, nnz=10908; minimax + 9-lane sum + exact-K K=18, summed",

@@ -16,10 +16,13 @@ import torch
 from .._build import check, load_library
 from .ref import chunk_len
 
-__all__ = ["mlstm_chunk_bh_cuda", "MAX_CHUNK", "HEAD_DIM_MULTIPLE"]
+__all__ = ["mlstm_chunk_bh_cuda", "MAX_CHUNK", "HEAD_DIM_MULTIPLE", "MAX_HEAD_DIM_BF16"]
 
 MAX_CHUNK = 128
 HEAD_DIM_MULTIPLE = 32
+# The bfloat16 kernel keeps 32 columns of C^T in the registers of 16 warps,
+# two 32-wide d groups a warp (csrc/mlstm_chunk.cu, tc::kMaxHd).
+MAX_HEAD_DIM_BF16 = 1024
 # The element types the kernel takes, by the code its C entry point reads.
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -30,9 +33,10 @@ def mlstm_chunk_bh_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q/k/v: [BH, S, hd], all bfloat16 or all float32, hd a multiple of 32;
     i_pre/f_pre: [BH, S] float32; all on one card → (y [BH, S, hd] like q,
     (C [BH, hd, hd], n [BH, hd], m [BH]) float32); the same contract as
-    :func:`.ref.mlstm_chunk_plain`. ``chunk`` at most 128. A head dim whose
-    slice of C does not fit in the card's shared memory (above 1472 on an
-    H100) fails at launch and raises."""
+    :func:`.ref.mlstm_chunk_plain`. ``chunk`` at most 128. bfloat16 takes a
+    head dim up to 1024 and tensors that start on 16 bytes; in float32 a
+    head dim whose slice of C does not fit in the card's shared memory
+    (above 1472 on an H100) fails at launch and raises."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"mlstm_chunk_bh_cuda needs CUDA tensors, got {dev}")
@@ -50,6 +54,9 @@ def mlstm_chunk_bh_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     L = chunk_len(s, chunk)
     if hd % HEAD_DIM_MULTIPLE:
         raise ValueError(f"head dim {hd} is not a multiple of {HEAD_DIM_MULTIPLE}")
+    if q.dtype == torch.bfloat16 and hd > MAX_HEAD_DIM_BF16:
+        raise ValueError(f"head dim {hd} above {MAX_HEAD_DIM_BF16}, the most the bfloat16 "
+                         "kernel holds")
     for name, t, dtype in (("q", q, q.dtype), ("k", k, q.dtype), ("v", v, q.dtype),
                            ("i_pre", i_pre, torch.float32), ("f_pre", f_pre, torch.float32)):
         if t.dtype != dtype:
@@ -58,6 +65,8 @@ def mlstm_chunk_bh_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: expected a tensor on {dev}, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: must be contiguous")
+        if dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: a bfloat16 tensor must start on 16 bytes")
     lib = load_library()
     y = torch.empty_like(q)
     C = torch.empty(bh, hd, hd, dtype=torch.float32, device=dev)

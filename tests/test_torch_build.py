@@ -15,6 +15,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv_window.kernel import conv_window_scores_cuda
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, flash_attention_bkv_cuda
+from repro_torch.kernels.mlstm_chunk.kernel import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM_BF16
 from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
 from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
 
@@ -63,6 +64,21 @@ def test_flash_head_dims_match_the_instantiations():
              for code in (0, 1)}
     assert built == {0: HEAD_DIMS[torch.float32], 1: HEAD_DIMS[torch.bfloat16]}
     assert 112 in HEAD_DIMS[torch.bfloat16] and 112 not in HEAD_DIMS[torch.float32]
+
+
+def test_mlstm_bf16_head_dim_matches_the_kernel():
+    """The wrapper's bfloat16 head-dim limit is what the tensor-core state
+    kernel holds in registers: 32-wide d groups, kGroups a warp, kWarps
+    warps; the C entry point refuses a wider bf16 head the same way."""
+    text = (_build._PKG / "mlstm_chunk/csrc/mlstm_chunk.cu").read_text()
+    tc = text[text.index("namespace tc {"):text.index("}  // namespace tc")]
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", tc).group(1))
+
+    assert 32 * const("kWarps") * const("kGroups") == MAX_HEAD_DIM_BF16 == 1024
+    assert MAX_HEAD_DIM_BF16 % HEAD_DIM_MULTIPLE == 0
+    assert "dtype == 1 && hd > tc::kMaxHd" in text
 
 
 def test_missing_nvcc_raises():
