@@ -5,7 +5,7 @@
 
 Imports ``repro_torch`` from ``<checkout root>/src`` (building its kernels
 there), then prints one JSON line: ``nvcc -Xptxas -v``'s registers and
-spills of the flash, RMSNorm, mLSTM and sweep kernels; the chunked-mLSTM
+spills of the flash, RMSNorm, mLSTM, sweep and window-CNN kernels; the chunked-mLSTM
 kernel's device time per call (its stages summed, ``torch.profiler``) and
 its wrapper's time at xlstm-1.3b's two prefill shapes (bf16); the sweep
 kernel's device and wrapper time in each of the head count's three modes
@@ -17,8 +17,13 @@ launch (``torch.profiler``) and its wrapper's time beside
 RMSNorm kernel's device time, and the host-bound times (least and median of
 15 rounds of 200 back-to-back calls, CUDA events) of its wrapper, of the
 model-layout op and of ``F.rms_norm`` at the serving shapes, with the parts
-of the wrapper's host path; and a warm full-width qwen3-4b b4 × 512 prefill
-and decode step (host clock, and the card's busy time from the profiler).
+of the wrapper's host path; a warm full-width qwen3-4b b4 × 512 prefill
+and decode step (host clock, and the card's busy time from the profiler);
+and the head count's CNN: a warm full-THERMAL ``execute_atomic`` (host
+clock, least and median of 3), the batch CNN kernel's device time at
+N=5452, and the host-bound time of one CNN task through ``score_window`` and
+through the graph's own task body (with the frame wrapper's host parts
+where the checkout has it).
 Compare two checkouts only within one call to the card, in turns: parent,
 change, change, parent. Exits 2 without a card.
 """
@@ -44,14 +49,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import torch.nn.functional as F
 
-    from chip_smoke import cuda_ms, kernel_ms, profile_device
+    from chip_smoke import cuda_ms, host_ms, kernel_ms, profile_device
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
-    from repro_torch.kernels.rmsnorm.ops import rmsnorm
     from repro_torch.models import api
+    from repro_torch.models.common import KERNELS
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -63,7 +68,8 @@ def main() -> int:
                                   text=True, timeout=60).stdout.strip()}
     ptxas = {}
     for src in ("flash_attention/csrc/flash_attention.cu", "rmsnorm/csrc/rmsnorm.cu",
-                "mlstm_chunk/csrc/mlstm_chunk.cu", "partition_sweep/csrc/partition_sweep.cu"):
+                "mlstm_chunk/csrc/mlstm_chunk.cu", "partition_sweep/csrc/partition_sweep.cu",
+                "conv_window/csrc/conv_window.cu"):
         extra = _build._EXTRA.get(Path(src).name, [])
         r = subprocess.run([_build._nvcc(), *_build._FLAGS, *extra, "-Xptxas", "-v", "-c",
                             str(_build._PKG / src),
@@ -76,11 +82,8 @@ def main() -> int:
             elif entry and ("registers" in line or "spill" in line):
                 ptxas.setdefault(entry, []).append(line.split(":", 1)[-1].strip())
     out["ptxas"] = ptxas
+    out.update(headcount_cnn(dev, lib))
     out.update(mlstm_and_sweep(dev))
-
-    def host_ms(fn, reps=200, rounds=15):
-        xs = sorted(cuda_ms(fn, reps) for _ in range(rounds))
-        return [xs[0], statistics.median(xs)]
 
     gen = torch.Generator(device=dev).manual_seed(0)
     for name, (b, s, h, kv, hd) in {"b4_s512": (4, 512, 32, 8, 128),
@@ -111,18 +114,18 @@ def main() -> int:
         x3 = x.reshape(1, n, d) if n < 16 else x.reshape(4, n // 4, d)
         w_lib = w.to(torch.bfloat16)  # cast once, outside the timing
         out[f"rms_{name}"] = {
-            "ms": ms, "profiled": seen, "wrapper_ms_least_median": host_ms(fn),
-            "op_3d_ms_least_median": host_ms(lambda: rmsnorm(x3, w, 1e-6, device=x3.device)),
-            "library_ms_least_median": host_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6))}
+            "ms": ms, "profiled": seen, "wrapper_ms_least_median": host_ms(fn, rounds=15),
+            "op_3d_ms_least_median": host_ms(lambda: KERNELS.rmsnorm(x3, w, 1e-6), rounds=15),
+            "library_ms_least_median": host_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6), rounds=15)}
         if name == "decode":
             y = torch.empty_like(x)
             args = (x.data_ptr(), w.data_ptr(), y.data_ptr(), n, d, 1e-6, 1)
             stream = torch.cuda.current_stream().cuda_stream
             out["rms_host_parts_ms_least_median"] = {
-                "empty_like": host_ms(lambda: torch.empty_like(x)),
-                "current_stream": host_ms(lambda: torch.cuda.current_stream().cuda_stream),
-                "current_device": host_ms(torch.cuda.current_device),
-                "ctypes_launch": host_ms(lambda: lib.rmsnorm_launch(*args, stream))}
+                "empty_like": host_ms(lambda: torch.empty_like(x), rounds=15),
+                "current_stream": host_ms(lambda: torch.cuda.current_stream().cuda_stream, rounds=15),
+                "current_device": host_ms(torch.cuda.current_device, rounds=15),
+                "ctypes_launch": host_ms(lambda: lib.rmsnorm_launch(*args, stream), rounds=15)}
 
     cfg = get_config("qwen3-4b")
     params = api.init_params(cfg, seed=0, device=dev)
@@ -155,6 +158,52 @@ def main() -> int:
             "kernels": sum(c for _, c in rows.values())}
     print(json.dumps(out), flush=True)
     return 0
+
+
+def headcount_cnn(dev, lib) -> dict:
+    """The head count's CNN in this checkout: a warm full-THERMAL atomic
+    execution, the batch kernel at N=5452, one CNN task's call time."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import conv_frame_host_parts, cuda_ms, host_ms, kernel_ms
+
+    from repro_torch.core.apps import headcount as hc
+    from repro_torch.core.runtime import execute_atomic
+    from repro_torch.kernels.conv_window import kernel as conv_kernel
+    from repro_torch.launch.headcount import SEED
+
+    g = hc.build_graph(hc.THERMAL, with_fns=True, seed=SEED, device=dev)
+    execute_atomic(g, {}, device=dev)
+    secs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        execute_atomic(g, {}, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    w = hc.weights_to_torch(hc.cnn_weights(0), dev)
+    wl = [w[k] for k in ("conv1", "b1", "conv2", "b2", "fc", "fc_b")]
+    x = torch.from_numpy(np.random.RandomState(5452).rand(5452, 12, 12).astype(np.float32)).to(dev)
+    fn = lambda: conv_kernel.conv_window_scores_cuda(x, *wl)  # noqa: E731
+    ms, how, seen = kernel_ms(fn, 20, "conv_window")
+    img = np.random.RandomState(SEED).randint(0, 65535, (60, 80)).astype(np.int32)
+    norm = hc.normalize(torch.from_numpy(img).to(dev))
+    body = next(t.fn for t in g.tasks if t.name == "cnn2_100")
+    out = {"headcount_execute_atomic_s": {"runs": secs, "least": min(secs),
+                                          "median": statistics.median(secs)},
+           "conv_batch_5452": {"ms": ms, "ms_from": how, "profiled": seen,
+                               "wrapper_ms": cuda_ms(fn, 20)},
+           "cnn_task_ms_least_median": {
+               "score_window": host_ms(lambda: hc.score_window(norm, w, 2, 9, 14)),
+               "task_body": host_ms(lambda: body({"norm": norm}))}}
+    if hasattr(conv_kernel, "conv_window_frame_cuda"):
+        from repro_torch.kernels.conv_window.ops import pack_cnn_weights, window_offsets
+
+        packed = pack_cnn_weights(w)
+        out["conv_frame_host_parts_ms_least_median"] = conv_frame_host_parts(
+            dev, lib, norm, packed, window_offsets(2, 9, 14, (60, 80)))
+    return out
 
 
 def mlstm_and_sweep(dev) -> dict:

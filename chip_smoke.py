@@ -10,8 +10,12 @@ three paths:
 1. the head count (``repro_torch.launch.headcount.run``: partition the full
    5458-task THERMAL head count on the sweep kernel, then execute the Q_min
    partition under the burst runtime with one injected power failure, every
-   window scored by the CNN kernel), checked against the port's CPU
-   execution;
+   CNN task one launch of the frame kernel reading its window from the
+   normalized frame), checked against the port's CPU execution; the frame
+   kernel is held to its plain version at all 5452 THERMAL windows (a
+   window one column over must miss), the batch kernel at N 1, 37, 1000
+   and 5452, and a traced atomic execution must launch the CNN kernel once
+   per CNN task and nothing else that often;
 2. serving qwen3-4b at full width (``repro_torch.launch.serve.serve``: 36
    layers, d 2560, 4,411,417,600 random parameters from a seed; batch 4 ×
    prompt 512 × 16 tokens, then batch 1 × prompt 1000 × 8 tokens; every
@@ -57,6 +61,10 @@ PEAK_F64_PER_S = 34e12
 PEAK_BF16_PER_S = 989e12
 
 CONV_TOL = 1e-5          # max |Δ| ≤ CONV_TOL · max(1, |score|)
+CONV_BATCHES = (1, 37, 1000, 5452)   # the batch kernel's checks; 5452: THERMAL's windows
+# The shifted-window control (the plain path one column over) must exceed
+# CONV_TOL in at least this share of the windows.
+CONV_CONTROL_SHARE = 0.9
 THERMAL_Q_MIN = 0.13196942
 # repro's own tolerances for these kernels (tests/test_kernels.py), absolute
 # and relative: |Δ| ≤ tol · (1 + |plain|). The serving kernels are also held
@@ -1145,6 +1153,126 @@ def flash_entry(dev, launches, errs):
     }
 
 
+# -- the head count's CNN ---------------------------------------------------------
+
+CONV_FRAME = (60, 80)
+
+
+def conv_frame_check(dev, hc) -> dict:
+    """The frame kernel against ``score_frame_window_plain`` on the card at
+    every THERMAL window of a seeded random normalized frame, within
+    CONV_TOL·max(1, |score|); the control, the plain path one column over,
+    must exceed that in CONV_CONTROL_SHARE of the windows. Raises on a
+    miss; returns the readings (and, under ``_``-keys, the inputs)."""
+    from repro_torch.kernels.conv_window.kernel import conv_window_frame_cuda
+    from repro_torch.kernels.conv_window.ops import pack_cnn_weights, window_offsets
+    from repro_torch.kernels.conv_window.ref import score_frame_window_plain
+
+    rs = np.random.RandomState(18)
+    norm = torch.from_numpy(rs.randint(0, 65536, CONV_FRAME).astype(np.int32)).to(dev)
+    packed = pack_cnn_weights(hc.cnn_weights(0), dev)
+    wins = [(hc._SCALES[s], y, x) for s in range(3) for y, x in hc._window_coords(hc.THERMAL, s)]
+    got = torch.stack([conv_window_frame_cuda(norm, packed, *window_offsets(s, y, x, CONV_FRAME))
+                       for s, y, x in wins])
+    want = torch.stack([score_frame_window_plain(norm, packed, s, y, x) for s, y, x in wins])
+    shifted = torch.stack([score_frame_window_plain(norm, packed, s, y, x + 1)
+                           for s, y, x in wins])
+    torch.cuda.synchronize()
+    share = (got - want).abs() / (CONV_TOL * torch.clamp(want.abs(), min=1.0))
+    ctl = (got - shifted).abs() / (CONV_TOL * torch.clamp(shifted.abs(), min=1.0))
+    out = {"frame_windows": len(wins), "frame_max_abs_err": (got - want).abs().max().item(),
+           "frame_max_share_of_tol": share.max().item(),
+           "control_share_of_windows_over_tol": (ctl > 1).float().mean().item(),
+           "control_median_share_of_tol": ctl.median().item()}
+    if not bool(torch.isfinite(got).all()) or bool((share > 1).any()):
+        raise AssertionError(f"frame kernel off its plain version: {out}")
+    if out["control_share_of_windows_over_tol"] < CONV_CONTROL_SHARE:
+        raise AssertionError(f"the shifted-window control passes the tolerance: {out}")
+    return {**out, "_norm": norm, "_packed": packed}
+
+
+def host_ms(fn, reps: int = 200, rounds: int = 5) -> list:
+    """[least, median] milliseconds per call of ``fn`` over ``rounds`` runs
+    of ``reps`` back-to-back calls (CUDA events): host-bound calls read the
+    host's pace."""
+    xs = sorted(cuda_ms(fn, reps) for _ in range(rounds))
+    return [xs[0], xs[len(xs) // 2]]
+
+
+def conv_frame_host_parts(dev, lib, norm, packed, offsets) -> dict:
+    """The frame wrapper's host path and its parts, [least, median] ms per
+    call: the whole wrapper, its output allocation, the stream handle (the
+    raw one it takes, and the ``Stream`` object it avoids), the current-card
+    query, the three ``data_ptr`` reads and the bare ctypes launch."""
+    from repro_torch.kernels.conv_window.kernel import _raw_stream, conv_window_frame_cuda
+
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    args = (norm.data_ptr(), packed.data_ptr(), out.data_ptr(), *offsets)
+    stream = _raw_stream(dev.index)
+    return {
+        "wrapper": host_ms(lambda: conv_window_frame_cuda(norm, packed, *offsets)),
+        "torch_empty_0d": host_ms(lambda: torch.empty((), dtype=torch.float32, device=dev)),
+        "raw_stream": host_ms(lambda: _raw_stream(dev.index)),
+        "current_stream_object": host_ms(lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "current_device": host_ms(torch.cuda.current_device),
+        "data_ptr_x3": host_ms(lambda: (norm.data_ptr(), packed.data_ptr(), out.data_ptr())),
+        "ctypes_launch": host_ms(lambda: lib.conv_window_frame_launch(*args, stream)),
+    }
+
+
+def conv_window_entry(dev, lib, launches, frame, windows, wl, batch_err) -> dict:
+    """The kernels line's CNN entry: the frame kernel at one window (the main
+    path, N=1) beside an empty one-block launch of the same library, then
+    the batch kernel at each N of CONV_BATCHES."""
+    from repro_torch.kernels.conv_window.kernel import (_raw_stream, conv_window_frame_cuda,
+                                                        conv_window_scores_cuda)
+    from repro_torch.kernels.conv_window.ops import window_offsets
+    from repro_torch.kernels.conv_window.ref import (conv_window_scores_plain,
+                                                     score_frame_window_plain)
+
+    def bound(nbytes, n):
+        ops = n * 2 * (10 * 10 * 8 * 9 + 3 * 3 * 16 * 72 + 16)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
+        return max(t_bytes, t_ops) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+    norm, packed = frame["_norm"], frame["_packed"]
+    scale, y, x = 2, 9, 14
+    offsets = window_offsets(scale, y, x, CONV_FRAME)
+    fn = lambda: conv_window_frame_cuda(norm, packed, *offsets)  # noqa: E731
+    ms, how, seen = kernel_ms(fn, 20, "conv_window_frame_kernel")
+    empty = lambda: lib.repro_empty_launch(576, _raw_stream(dev.index))  # noqa: E731
+    floor_ms, _, floor_seen = kernel_ms(empty, 20, "repro_empty_kernel")
+    bound_ms, by = bound(144 * 4 + 1265 * 4 + 4, 1)
+    batch = {}
+    for n, xs in windows.items():
+        bfn = lambda: conv_window_scores_cuda(xs, *wl)  # noqa: E731
+        bms, bhow, bseen = kernel_ms(bfn, 20, "conv_window_batch_kernel")
+        b_bound, b_by = bound(n * 144 * 4 + 1265 * 4 + n * 4, n)
+        batch[n] = {"ms": bms, "ms_from": bhow, "profiled_launches": bseen,
+                    "wrapper_ms": cuda_ms(bfn, 20),
+                    "plain_ms": cuda_ms(lambda: conv_window_scores_plain(xs, *wl), 20),
+                    "bound_ms": b_bound, "bound_by": b_by, "share_of_bound": b_bound / bms,
+                    "max_abs_err": batch_err[n]}
+    return {
+        "name": "conv_window", "route": "cuda",
+        "source": "src/repro_torch/kernels/conv_window/csrc/conv_window.cu",
+        "replaces": "src/repro/kernels/conv_window/kernel.py:37",
+        "launches": launches, "max_abs_err": frame["frame_max_abs_err"],
+        "ms": ms, "ms_from": how, "profiled_launches": seen,
+        "empty_launch_floor_ms": floor_ms, "empty_launch_profiled": floor_seen,
+        "wrapper_ms": cuda_ms(fn, 200),
+        "plain_ms": cuda_ms(lambda: score_frame_window_plain(norm, packed, scale, y, x), 20),
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+        "library_note": "no single PyTorch call computes the fused CNN",
+        "shape": ("N=1: conv_window_frame_kernel, one THERMAL window read from the "
+                  "normalized 60x80 frame per launch (the main path); batch below"),
+        "wrapper_host_parts_ms_least_median": conv_frame_host_parts(dev, lib, norm, packed,
+                                                                    offsets),
+        "batch_5452": batch[5452],
+        "batch_other_n": {n: v for n, v in batch.items() if n != 5452},
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -1164,7 +1292,8 @@ def main() -> int:
     from repro_torch.core.partition_torch import sweep, sweep_from_columns
     from repro_torch.core.runtime import execute_atomic
     from repro_torch.kernels._build import load_library
-    from repro_torch.kernels.conv_window.kernel import conv_window_scores_cuda
+    from repro_torch.kernels.conv_window.kernel import (conv_window_frame_cuda,
+                                                        conv_window_scores_cuda)
     from repro_torch.kernels.conv_window.ref import conv_window_scores_plain
     from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
     from repro_torch.kernels.partition_sweep.ops import budget_lanes, device_slots
@@ -1315,12 +1444,16 @@ def main() -> int:
             raise AssertionError(f"exact-K at Q_min infeasible: {out}")
         emit({"phase": "full_headcount_kernel_vs_plain_cpu", "parity": "bitwise", **out})
 
-    # -- phase 4: CNN kernel vs its plain version on the card ------------------
+    # -- phase 4: CNN kernels vs their plain versions on the card -------------
+    # The batch kernel (repro's contract) at each N of CONV_BATCHES; the frame
+    # kernel (one launch per CNN task) at every THERMAL window of a seeded
+    # random normalized frame, against a control that must exceed the
+    # tolerance: the plain path one column over.
     w = hc.weights_to_torch(hc.cnn_weights(0), dev)
     wl = [w[k].contiguous() for k in ("conv1", "b1", "conv2", "b2", "fc", "fc_b")]
     conv_err = {}
     windows = {}
-    for n in (1, 5452):
+    for n in CONV_BATCHES:
         x = torch.from_numpy(np.random.RandomState(n).rand(n, 12, 12).astype(np.float32)).to(dev)
         windows[n] = x
         got = conv_window_scores_cuda(x, *wl)
@@ -1332,24 +1465,36 @@ def main() -> int:
             raise AssertionError(f"conv kernel off its plain version at N={n}: "
                                  f"max |Δ| {err.max().item()}")
         conv_err[n] = err.max().item()
-    emit({"phase": "conv_vs_plain_on_card", "max_abs_err": conv_err,
+    frame = conv_frame_check(dev, hc)
+    emit({"phase": "conv_vs_plain_on_card", "batch_max_abs_err": conv_err,
+          **{k: v for k, v in frame.items() if not k.startswith("_")},
           "tolerance": f"{CONV_TOL}*max(1,|score|)"})
 
     # -- phase 5: the main path ------------------------------------------------
     sweep_columns_cuda.launches = 0
-    conv_window_scores_cuda.launches = 0
+    conv_window_frame_cuda.launches = 0
     t0 = time.perf_counter()
     r = launch.run("thermal", device=dev, emit=emit)
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = {"partition_sweep": sweep_columns_cuda.launches,
-                "conv_window": conv_window_scores_cuda.launches}
+                "conv_window_frame": conv_window_frame_cuda.launches}
+    # One frame launch per CNN task run: every task atomically, every task
+    # under the runtime, and the CNN tasks of the burst its power failure
+    # replays (launch.run injects it at burst n_bursts // 2).
+    part = r["partition"]
+    g_thermal = full["thermal"][0]
+    i, j = part.bounds[part.n_bursts // 2]
+    n_cnn = sum(hc.THERMAL.n_cnn)
+    replayed = sum(g_thermal.task(k).name.startswith("cnn") for k in range(i, j + 1))
+    want_frame = 2 * n_cnn + replayed
     g_cpu = hc.build_graph(hc.THERMAL, with_fns=True, seed=launch.SEED, device=cpu)
     head_cpu = int(execute_atomic(g_cpu, {}, device=cpu)["headcount"])
     ok = (r["headcount"] == r["headcount_atomic"] == head_cpu
           and r["power_failures"] == 1 and r["q_min"] == full["thermal"][2]
-          and r["partition"].n_bursts == 18)
+          and r["partition"].n_bursts == 18 and launches["conv_window_frame"] == want_frame)
     emit({"phase": "main_path", "seconds": main_s, "launches": launches,
+          "conv_window_frame_expected": want_frame, "cnn_tasks_replayed": replayed,
           "headcount_runtime": r["headcount"], "headcount_atomic_card": r["headcount_atomic"],
           "headcount_cpu": head_cpu, "ok": ok})
     if not ok or min(launches.values()) < 1:
@@ -1369,16 +1514,29 @@ def main() -> int:
     host_s = time.perf_counter() - t0
     rows = profile_device(lambda: execute_atomic(g_exec, {}, device=dev))
     busy_s = sum(t for t, _ in rows.values()) / 1e6
-    conv_rows = [(t, c) for k, (t, c) in rows.items() if "conv_window_kernel" in k]
+    conv_rows = [(t, c) for k, (t, c) in rows.items() if "conv_window_frame_kernel" in k]
+    conv_launches = sum(c for _, c in conv_rows)
+    # Device ops launched at least once per CNN task, besides the CNN kernel
+    # (rows without device time are the runtime API's host calls).
+    per_task = sorted(k[:80] for k, (t, c) in rows.items()
+                      if t > 0 and c >= n_cnn and "conv_window_frame_kernel" not in k)
     seen = busy_s > 0  # else the profiler saw no device activity: not measured
     emit({"phase": "execution_trace", "what": "execute_atomic, full THERMAL",
           "host_s": host_s, "device_busy_s": busy_s if seen else None,
           "idle_share": 1.0 - busy_s / host_s if seen else None,
-          "conv_kernel_s": sum(t for t, _ in conv_rows) / 1e6,
-          "conv_kernel_launches": sum(c for _, c in conv_rows),
-          "device_ops": len(rows),
+          "cnn_tasks": n_cnn, "conv_kernel_s": sum(t for t, _ in conv_rows) / 1e6,
+          "conv_kernel_launches": conv_launches,
+          "conv_kernel_us_per_launch": (sum(t for t, _ in conv_rows) / conv_launches
+                                        if conv_launches else None),
+          "device_launches_per_cnn_task": (conv_launches + sum(
+              c for k, (_, c) in rows.items() if k[:80] in per_task)) / n_cnn,
+          "other_ops_per_cnn_task": per_task, "device_ops": len(rows),
+          "device_launches": sum(c for t, c in rows.values() if t > 0),
           "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
                                    key=lambda x: -x[1])[:6]})
+    if conv_launches != n_cnn or per_task:
+        raise AssertionError(f"execution trace: {conv_launches} CNN kernel launches for "
+                             f"{n_cnn} CNN tasks; other ops once per task: {per_task}")
 
     # -- phases 7-11: the serving kernels, the serving path, every flash cell,
     # parity, trace ------------------------------------------------------------
@@ -1454,32 +1612,8 @@ def main() -> int:
         "shape": "THERMAL N=5458, nnz=10908; minimax + 9-lane sum + exact-K K=18, summed",
         "by_mode": by_mode,
     }
-    conv_by_n = {}
-    for n, x in windows.items():
-        fn = lambda: conv_window_scores_cuda(x, *wl)  # noqa: E731
-        ms, how, seen = kernel_ms(fn, 20, "conv_window_kernel")
-        wms = cuda_ms(fn, 20)
-        pms = cuda_ms(lambda: conv_window_scores_plain(x, *wl), 20)
-        nbytes = n * 144 * 4 + 1265 * 4 + n * 4
-        ops = n * 2 * (10 * 10 * 8 * 9 + 3 * 3 * 16 * 72 + 16)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_F32_PER_S
-        conv_by_n[n] = {"ms": ms, "ms_from": how, "profiled_launches": seen,
-                        "wrapper_ms": wms, "plain_ms": pms,
-                        "bound_ms": max(t_bytes, t_ops) * 1e3,
-                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                        "max_abs_err": conv_err[n]}
-    conv_entry = {
-        "name": "conv_window", "route": "cuda",
-        "source": "src/repro_torch/kernels/conv_window/csrc/conv_window.cu",
-        "replaces": "src/repro/kernels/conv_window/kernel.py:37",
-        "launches": launches["conv_window"],
-        **{k: conv_by_n[1][k] for k in ("max_abs_err", "ms", "ms_from", "wrapper_ms",
-                                         "plain_ms", "bound_ms", "bound_by")},
-        "library_ms": None,
-        "library_note": "no single PyTorch call computes the fused CNN",
-        "shape": "N=1 window per launch on the main path; batch 5452 below",
-        "batch_5452": conv_by_n[5452],
-    }
+    conv_entry = conv_window_entry(dev, lib, launches["conv_window_frame"], frame, windows,
+                                   wl, conv_err)
     kernels = [sweep_entry, conv_entry, rmsnorm_entry(dev, launches_by_path, rms_err),
                flash_entry(dev, launches_by_path, flash_err),
                mlstm_entry(dev, launches_by_path, mlstm_err)]

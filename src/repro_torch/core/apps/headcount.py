@@ -6,9 +6,11 @@ sort → nms → transmit), the same packets and costs — so the CSR export is
 equal array for array — and the same seeded CNN weights.
 
 With ``with_fns=True`` every task carries a body whose packets are tensors
-on ``device``: ``normalize`` and each ``cnn*`` body run there (a CNN body
-decimates and slices its window on the device and scores a ``[1,12,12]``
-batch with :func:`repro_torch.kernels.conv_window.ops.score_windows`);
+on ``device``: ``normalize`` and each ``cnn*`` body run there (a CNN body is
+one :func:`repro_torch.kernels.conv_window.ops.score_frame_window` call:
+on a card one kernel launch that reads its window straight from the
+normalized frame, with the weights packed and the window's offsets computed
+once when the graph is built);
 ``sort``, ``nms`` and ``transmit`` are host numpy, line for line as in the
 reference, with ``sort`` fed by one device→host copy of the stacked scores.
 The frame and its normalized form live as int32 holding the reference's
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
-from ...kernels.conv_window.ops import score_windows
+from ...kernels.conv_window.ops import pack_cnn_weights, score_frame_window, window_offsets
 from ..cost import PAPER_FRAM_MODEL, CostModel
 from ..graph import GraphBuilder, TaskGraph
 
@@ -113,10 +115,9 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
 
 def score_window(norm: torch.Tensor, weights: Mapping[str, torch.Tensor],
                  scale: int, y: int, x: int) -> torch.Tensor:
-    """Score the 12×12 window at (y, x) of the frame decimated by ``scale``."""
-    f = norm.to(torch.float32) / 65535.0
-    win = f[::scale, ::scale][y : y + _WIN, x : x + _WIN]
-    return score_windows(win[None], weights, device=norm.device)[0]
+    """Score the 12×12 window at (y, x) of the frame decimated by ``scale``
+    → 0-dim float32 on the frame's device."""
+    return score_frame_window(norm, pack_cnn_weights(weights, norm.device), scale, y, x)
 
 
 def _window_coords(spec: HeadCountSpec, scale_idx: int) -> List[Tuple[int, int]]:
@@ -164,7 +165,7 @@ def build_graph(
     fns: Dict[str, object] = {}
     if with_fns:
         dev = resolve_device(device)
-        weights = weights_to_torch(cnn_weights(seed), dev)
+        packed = pack_cnn_weights(cnn_weights(seed), dev)
         frame = (
             image
             if image is not None
@@ -200,9 +201,10 @@ def build_graph(
         def mk_cnn(scale_idx, t, out_name):
             y, x = coords[scale_idx][t]
             scale = _SCALES[scale_idx]
+            offsets = window_offsets(scale, y, x, (_IMG_H, _IMG_W))
 
             def fn(inp):
-                return {out_name: score_window(inp["norm"], weights, scale, y, x)}
+                return {out_name: score_frame_window(inp["norm"], packed, scale, y, x, offsets)}
 
             return fn
 

@@ -60,10 +60,12 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
     "repro_smem_optin": ([_I, _P], _I),
+    "repro_empty_launch": ([_I, _P], _I),
     "partition_sweep_smem_bytes": ([_I] * 4, ctypes.c_longlong),
     "partition_sweep_launch": ([_P, _P, _P, ctypes.c_double] + [_P] * 11 + [_I] * 7 + [_P],
                                _I),
     "conv_window_launch": ([_P] * 8 + [_I, _P], _I),
+    "conv_window_frame_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "rmsnorm_launch": ([_P] * 3 + [_I, _I, ctypes.c_float, _I, _P], _I),
     "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
     "mlstm_chunk_scratch_floats": ([_I] * 3, ctypes.c_longlong),

@@ -3,16 +3,15 @@
 The counterpart of ``repro/kernels/flash_attention/ops.py::flash_attention``:
 it regroups the model's ``[B, S, H, hd]`` / ``[B, S, KV, hd]`` layout into
 the kernel's ``[B·KV, S, G, hd]`` / ``[B·KV, S, hd]`` and back, with
-positions counted from 0 (what prefill uses). Dispatch is on the device
-alone: on a CUDA device the kernel runs (or the call raises); on the CPU the
-plain version runs.
+positions counted from 0 (what prefill uses). Dispatch is on q's device
+alone: on a card the kernel runs (or the call raises); on the CPU the plain
+version runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...device import resolve_device
 from .kernel import flash_attention_bkv_cuda
 from .ref import attention_plain
 
@@ -36,14 +35,14 @@ def from_bkv(o, b: int):
     return o.reshape(b, kv, sq, g, hd).transpose(1, 2).reshape(b, sq, kv * g, hd)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, device="cuda") -> torch.Tensor:
-    """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd] → [B, Sq, H, hd] in q's dtype,
-    on ``device``. H must be a multiple of KV (GQA)."""
-    dev = resolve_device(device)
-    q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
+def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd] on q's device (tensors, or
+    numpy for the CPU) → [B, Sq, H, hd] in q's dtype, on q's device. H must
+    be a multiple of KV (GQA)."""
+    q, k, v = (torch.as_tensor(t) for t in (q, k, v))
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
                          f"{k.shape[2]} KV heads")
     qg, kg, vg = to_bkv(q, k, v)
-    run = flash_attention_bkv_cuda if dev.type == "cuda" else attention_plain
+    run = flash_attention_bkv_cuda if q.is_cuda else attention_plain
     return from_bkv(run(qg, kg, vg, causal=causal), q.shape[0])

@@ -3,15 +3,14 @@
 The counterpart of ``repro/kernels/mlstm_chunk/ops.py::mlstm_cell``: it folds
 the model's ``[B, S, H, hd]`` layout into the kernel's ``[B·H, S, hd]`` and
 back, and also returns the final state, which decode continues from.
-Dispatch is on the device alone: on a CUDA device the kernel runs (or the
-call raises); on the CPU the plain version runs.
+Dispatch is on q's device alone: on a card the kernel runs (or the call
+raises); on the CPU the plain version runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...device import resolve_device
 from .kernel import mlstm_chunk_bh_cuda
 from .ref import mlstm_chunk_plain
 
@@ -38,12 +37,12 @@ def in_model_layout(run, q, k, v, i_pre, f_pre, *, chunk: int = 128):
     return unfold(y, b), (C.reshape(b, h, hd, hd), n.reshape(b, h, hd), m.reshape(b, h))
 
 
-def mlstm_cell(q, k, v, i_pre, f_pre, *, chunk: int = 128, device="cuda"):
-    """q/k/v: [B, S, H, hd]; gates [B, S, H] → (y [B, S, H, hd] in q's
-    dtype, (C [B, H, hd, hd], n [B, H, hd], m [B, H]) float32), on
-    ``device``, from the zero state."""
-    dev = resolve_device(device)
-    q, k, v = (torch.as_tensor(t, device=dev) for t in (q, k, v))
-    i_pre, f_pre = (torch.as_tensor(t, dtype=torch.float32, device=dev) for t in (i_pre, f_pre))
-    run = mlstm_chunk_bh_cuda if dev.type == "cuda" else mlstm_chunk_plain
+def mlstm_cell(q, k, v, i_pre, f_pre, *, chunk: int = 128):
+    """q/k/v: [B, S, H, hd]; gates [B, S, H], all on q's device (tensors, or
+    numpy for the CPU) → (y [B, S, H, hd] in q's dtype, (C [B, H, hd, hd],
+    n [B, H, hd], m [B, H]) float32), on q's device, from the zero state."""
+    q, k, v = (torch.as_tensor(t) for t in (q, k, v))
+    i_pre, f_pre = (torch.as_tensor(t, dtype=torch.float32, device=q.device)
+                    for t in (i_pre, f_pre))
+    run = mlstm_chunk_bh_cuda if q.is_cuda else mlstm_chunk_plain
     return in_model_layout(run, q, k, v, i_pre, f_pre, chunk=chunk)

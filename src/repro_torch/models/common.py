@@ -52,27 +52,20 @@ class Kernels:
     mlstm: Callable
 
 
-def _kernel_rmsnorm(x, w, eps):
-    return rmsnorm_ops.rmsnorm(x, w, eps, device=x.device)
-
-
 def _kernel_attention(q, k, v, causal):
-    return attention_ops.flash_attention(q, k, v, causal=causal, device=q.device)
+    return attention_ops.flash_attention(q, k, v, causal=causal)
 
 
 def _plain_attention(q, k, v, causal):
     return from_bkv(attention_plain(*to_bkv(q, k, v), causal=causal), q.shape[0])
 
 
-def _kernel_mlstm(q, k, v, i_pre, f_pre):
-    return mlstm_ops.mlstm_cell(q, k, v, i_pre, f_pre, device=q.device)
-
-
 def _plain_mlstm(q, k, v, i_pre, f_pre):
     return mlstm_ops.in_model_layout(mlstm_chunk_plain, q, k, v, i_pre, f_pre)
 
 
-KERNELS = Kernels(rmsnorm=_kernel_rmsnorm, attention=_kernel_attention, mlstm=_kernel_mlstm)
+KERNELS = Kernels(rmsnorm=rmsnorm_ops.rmsnorm, attention=_kernel_attention,
+                  mlstm=mlstm_ops.mlstm_cell)
 PLAIN = Kernels(rmsnorm=rmsnorm_plain, attention=_plain_attention, mlstm=_plain_mlstm)
 
 

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.conv_window.kernel import conv_window_scores_cuda
+from repro_torch.kernels.conv_window.kernel import conv_window_frame_cuda, conv_window_scores_cuda
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS, flash_attention_bkv_cuda
 from repro_torch.kernels.mlstm_chunk.kernel import HEAD_DIM_MULTIPLE, MAX_HEAD_DIM_BF16
 from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
@@ -37,6 +37,8 @@ def test_sources_and_digest():
     ("rmsnorm_launch", 8, "rmsnorm/csrc/rmsnorm.cu"),
     ("flash_attention_launch", 13, "flash_attention/csrc/flash_attention.cu"),
     ("mlstm_chunk_launch", 16, "mlstm_chunk/csrc/mlstm_chunk.cu"),
+    ("conv_window_launch", 10, "conv_window/csrc/conv_window.cu"),
+    ("conv_window_frame_launch", 7, "conv_window/csrc/conv_window.cu"),
 ])
 def test_model_kernel_signatures(name, n_args, source):
     """Each launcher's declared ctypes signature matches its C definition:
@@ -103,6 +105,13 @@ def test_conv_wrapper_refuses_cpu_tensors():
         conv_window_scores_cuda(z(1, 12, 12), z(3, 3, 1, 8), z(8), z(3, 3, 8, 16),
                                 z(16), z(16), z(()))
     assert conv_window_scores_cuda.launches == 0
+
+
+def test_conv_frame_wrapper_refuses_cpu_tensors():
+    norm = torch.zeros(60, 80, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        conv_window_frame_cuda(norm, torch.zeros(1265), 0, 80, 1)
+    assert conv_window_frame_cuda.launches == 0
 
 
 def test_rmsnorm_wrapper_refuses_cpu_tensors():

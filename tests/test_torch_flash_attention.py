@@ -57,7 +57,7 @@ def close(got: torch.Tensor, want, dtype) -> None:
 @pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
 def test_matches_pallas_interpret(case, dtype):
     (q, k, v), (qj, kj, vj) = inputs(case, dtype)
-    got = ops.flash_attention(q, k, v, causal=case[-1], device="cpu")
+    got = ops.flash_attention(q, k, v, causal=case[-1])
     assert got.dtype == dtype and got.shape == q.shape
     want = jax_flash_attention(qj, kj, vj, causal=case[-1], block_k=min(64, case[2]),
                                interpret=True)
@@ -69,7 +69,7 @@ def test_matches_blockwise_attention(case):
     """Against the model's own online-softmax path, which the prefill of
     ``repro.models.attention.attention`` runs (in bf16 whatever its inputs)."""
     (q, k, v), (qj, kj, vj) = inputs(case, torch.bfloat16, seed=1)
-    got = ops.flash_attention(q, k, v, causal=case[-1], device="cpu")
+    got = ops.flash_attention(q, k, v, causal=case[-1])
     close(got, blockwise_attention(qj, kj, vj, causal=case[-1]), torch.bfloat16)
 
 
@@ -85,8 +85,7 @@ def test_plain_matches_attention_ref_in_kernel_layout(case):
     as_jax = [jnp.asarray(t.to(torch.float32).numpy()).astype(JAX_DTYPE[dtype])
               for t in (qg, kg, vg)]
     close(got, attention_ref(*as_jax, causal=causal), dtype)
-    assert torch.equal(from_bkv(got, b), ops.flash_attention(q, k, v, causal=causal,
-                                                             device="cpu"))
+    assert torch.equal(from_bkv(got, b), ops.flash_attention(q, k, v, causal=causal))
 
 
 def test_layout_round_trip_matches_reference_regroup():
@@ -106,14 +105,14 @@ def test_layout_round_trip_matches_reference_regroup():
 
 def test_first_token_attends_only_itself():
     (q, k, v), _ = inputs((1, 32, 32, 4, 4, 64, True), torch.float32, seed=4)
-    o = ops.flash_attention(q, k, v, causal=True, device="cpu")
+    o = ops.flash_attention(q, k, v, causal=True)
     np.testing.assert_allclose(o[:, 0].numpy(), v[:, 0].numpy(), atol=2e-5, rtol=2e-5)
 
 
 def test_heads_not_a_multiple_of_kv_heads_raise():
     (q, k, v), _ = inputs((1, 8, 8, 3, 2, 16, True), torch.float32)
     with pytest.raises(ValueError, match="multiple"):
-        ops.flash_attention(q, k, v, device="cpu")
+        ops.flash_attention(q, k, v)
 
 
 def test_flash_bound_holds_the_kernels_rounding_and_rejects_the_control():

@@ -71,13 +71,15 @@ def test_cuda_request_without_a_card_raises():
         pytest.skip("a CUDA card is present; the no-card contract cannot be observed")
     from repro_torch.core.apps import headcount as hc
     from repro_torch.core.partition_torch import q_min
-    from repro_torch.kernels.conv_window.ops import score_windows
+    from repro_torch.core.runtime import execute_atomic
 
     g = hc.build_graph(hc.VISUAL.reduced(128))
     with pytest.raises(RuntimeError, match="cuda"):
         q_min(g, hc.paper_cost_model())  # the default device is "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
-        score_windows(torch.zeros(1, 12, 12), hc.cnn_weights(0), device="cuda")
+        hc.weights_to_torch(hc.cnn_weights(0), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        execute_atomic(g, {})
     with pytest.raises(RuntimeError, match="cuda"):
         hc.build_graph(hc.VISUAL.reduced(128), with_fns=True)
 

@@ -65,8 +65,7 @@ def close(got, want) -> None:
 @pytest.mark.parametrize("S,hd,chunk", SHAPES)
 def test_plain_matches_pallas_interpret_and_oracle(S, hd, chunk):
     q, k, v, i, f = inputs(S, hd)
-    y, (C, n, m) = ops.mlstm_cell(*map(torch.from_numpy, (q, k, v, i, f)), chunk=chunk,
-                                  device="cpu")
+    y, (C, n, m) = ops.mlstm_cell(*map(torch.from_numpy, (q, k, v, i, f)), chunk=chunk)
     assert y.shape == (B, S, H, hd) and y.dtype == torch.float32
     assert C.shape == (B, H, hd, hd) and n.shape == (B, H, hd) and m.shape == (B, H)
     close(y, ref_mlstm_cell(*map(jnp.asarray, (q, k, v, i, f)), chunk=chunk, interpret=True))
@@ -76,7 +75,7 @@ def test_plain_matches_pallas_interpret_and_oracle(S, hd, chunk):
 
 def test_forget_gate_saturation_stays_finite():
     q, k, v, i, f = inputs(128, 32, saturate=True)
-    y, state = ops.mlstm_cell(*map(torch.from_numpy, (q, k, v, i, f)), chunk=64, device="cpu")
+    y, state = ops.mlstm_cell(*map(torch.from_numpy, (q, k, v, i, f)), chunk=64)
     assert all(bool(torch.isfinite(t).all()) for t in (y, *state))
     close(y, ref_mlstm_cell(*map(jnp.asarray, (q, k, v, i, f)), chunk=64, interpret=True))
 
@@ -112,7 +111,7 @@ def test_chunk_rule():
     q = torch.zeros(1, 200, 1, 32)
     g = torch.zeros(1, 200, 1)
     with pytest.raises(ValueError, match="multiple"):
-        ops.mlstm_cell(q, q, q, g, g, device="cpu")
+        ops.mlstm_cell(q, q, q, g, g)
 
 
 def test_wrapper_refuses_cpu_tensors():
@@ -133,9 +132,15 @@ def test_scratch_query_is_declared():
 
 
 def test_cuda_request_without_a_card_raises():
+    """The op takes no device (a CPU tensor runs the plain version); the
+    entry point that serves the mLSTM raises for its default "cuda"."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the no-card contract cannot be observed")
+    from repro_torch.launch import serve as serve_mod
+
     q = torch.zeros(1, 128, 1, 32)
     g = torch.zeros(1, 128, 1)
+    y, _ = ops.mlstm_cell(q, q, q, g, g)
+    assert torch.equal(y, ops.in_model_layout(mlstm_chunk_plain, q, q, q, g, g)[0])
     with pytest.raises(RuntimeError, match="cuda"):
-        ops.mlstm_cell(q, q, q, g, g)  # the default device is "cuda"
+        serve_mod.serve("xlstm-1.3b", 1, 4, 2, smoke=True)  # the default device is "cuda"

@@ -44,7 +44,7 @@ def close(got: torch.Tensor, want) -> None:
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_plain_matches_pallas_interpret(shape, dtype):
     x, w, xj, wj = inputs(shape, dtype)
-    got = ops.rmsnorm(x, w, device="cpu")
+    got = ops.rmsnorm(x, w)
     assert got.dtype == dtype and got.shape == x.shape
     close(got, jax_rmsnorm(xj, wj, interpret=True))
     close(got, rmsnorm_ref(xj, wj))
@@ -64,10 +64,10 @@ def test_model_rmsnorm_matches_reference_model(shape, dtype):
 
 def test_plain_is_the_cpu_path():
     x, w, _, _ = inputs((4, 3, 128), torch.bfloat16, seed=2)
-    assert torch.equal(ops.rmsnorm(x, w, 1e-6, device="cpu"), rmsnorm_plain(x, w, 1e-6))
+    assert torch.equal(ops.rmsnorm(x, w, 1e-6), rmsnorm_plain(x, w, 1e-6))
 
 
 def test_unit_mean_square():
     x, _, _, _ = inputs((16, 512), torch.float32, seed=3)
-    y = ops.rmsnorm(10.0 * x, torch.ones(512), device="cpu")
+    y = ops.rmsnorm(10.0 * x, torch.ones(512))
     np.testing.assert_allclose(y.square().mean(dim=-1).numpy(), 1.0, atol=1e-3)

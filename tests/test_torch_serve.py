@@ -271,14 +271,24 @@ def test_unported_families_raise():
 
 
 def test_cuda_requests_without_a_card_raise():
+    """The entry points' ``device="cuda"`` (their default) raises without a
+    card instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the no-card contract cannot be observed")
-    x = torch.zeros(2, 4, 2, 64, dtype=COMPUTE_DTYPE)
     with pytest.raises(RuntimeError, match="cuda"):
         serve_mod.serve(ARCH, 1, 4, 2, smoke=True)  # the default device is "cuda"
     with pytest.raises(RuntimeError, match="cuda"):
-        rmsnorm(x, torch.ones(64))
-    with pytest.raises(RuntimeError, match="cuda"):
-        flash_attention(x, x, x)
+        serve_mod.serve(ARCH, 1, 4, 2, smoke=True, device="cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         api.init_params(SMOKE_CONFIGS[ARCH])
+    with pytest.raises(RuntimeError, match="cuda"):
+        api.init_params(SMOKE_CONFIGS[ARCH], device="cuda")
+
+
+def test_kernel_ops_dispatch_on_the_tensors_device():
+    """The kernel ops take no device: a CPU tensor runs the plain version."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 4, 2, 64).astype(np.float32))
+    x = x.to(COMPUTE_DTYPE)
+    w = torch.ones(64)
+    assert torch.equal(rmsnorm(x, w), PLAIN.rmsnorm(x, w, 1e-5))
+    assert torch.equal(flash_attention(x, x, x), PLAIN.attention(x, x, x, True))
