@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-kernel against its plain PyTorch version on the card, and drives the port's
-three paths:
+Builds the port's CUDA kernels from the sources in this checkout, measures
+the host-offload cost model's constants (pinned copy bandwidth both ways, a
+4 KB copy, an empty launch) beside those committed in
+``repro_torch.core.cost``, holds each kernel against its plain PyTorch
+version on the card, and drives the port's four paths:
 
 1. the head count (``repro_torch.launch.headcount.run``: partition the full
    5458-task THERMAL head count on the sweep kernel, then execute the Q_min
@@ -15,15 +17,25 @@ three paths:
    kernel is held to its plain version at all 5452 THERMAL windows (a
    window one column over must miss), the batch kernel at N 1, 37, 1000
    and 5452, and a traced atomic execution must launch the CNN kernel once
-   per CNN task and nothing else that often;
-2. serving qwen3-4b at full width (``repro_torch.launch.serve.serve``: 36
+   per CNN task and nothing else that often; then the Q_min partition again
+   under the runtime with the tracer on and one power failure (one burst
+   span per attempt, one ``nvm_commit`` instant per commit, equal to
+   ``COMMIT_STATS`` and the ``on_commit`` calls, one replay);
+2. the plan tables of qwen3-4b (time and memory) and xlstm-1.3b (time) at
+   full width, built through the façade on the sweep kernel (the Q grid on
+   its minimax mode, the cells on its sum mode, an exact-K solve per
+   bucket), each bitwise equal to the same build on the numpy backend; the
+   probe must pass at k=8 and see one altered cell, a second build must hit
+   the fingerprint cache, and the memory table prices offload and remat
+   plans;
+3. serving qwen3-4b at full width (``repro_torch.launch.serve.serve``: 36
    layers, d 2560, 4,411,417,600 random parameters from a seed; batch 4 ×
    prompt 512 × 16 tokens, then batch 1 × prompt 1000 × 8 tokens; every
    RMSNorm and every prefill attention through the CUDA kernels), checked
    cell by cell (the flash kernel on the q, k, v of all 72 prefill layers,
    against a rounding-derived bound that a 2^-5 fault exceeds) and against
    the plain path on the same weights;
-3. serving xlstm-1.3b at full width (the same ``serve``: 48 layers, d 2048,
+4. serving xlstm-1.3b at full width (the same ``serve``: 48 layers, d 2048,
    6 groups of 7 mLSTM + 1 sLSTM blocks, random weights from a seed; batch
    4 × prompt 512 × 16 tokens, then batch 1 × prompt 1024 × 8 tokens; every
    mLSTM prefill cell through the chunked-mLSTM kernel), checked cell by
@@ -42,6 +54,7 @@ import copy
 import dataclasses
 import json
 import random
+import shutil
 import subprocess
 import sys
 import time
@@ -66,6 +79,15 @@ CONV_BATCHES = (1, 37, 1000, 5452)   # the batch kernel's checks; 5452: THERMAL'
 # CONV_TOL in at least this share of the windows.
 CONV_CONTROL_SHARE = 0.9
 THERMAL_Q_MIN = 0.13196942
+COPY_BYTES = 64 << 20    # the cost_constants phase's bandwidth copies
+# Plan tables built on the card at full width: (arch, kind, (batch, seq) buckets).
+QWEN_TABLE_BUCKETS = ((1, 128), (1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1024),
+                      (8, 512), (8, 2048))
+PLAN_TABLES = (("qwen3-4b", "time", QWEN_TABLE_BUCKETS),
+               ("qwen3-4b", "memory", QWEN_TABLE_BUCKETS),
+               ("xlstm-1.3b", "time", ((1, 128), (1, 512), (1, 1024), (4, 512), (4, 1024),
+                                       (8, 2048))))
+PLAN_Q_POINTS = 16       # geometric Q points per table, plus the unbounded one
 # repro's own tolerances for these kernels (tests/test_kernels.py), absolute
 # and relative: |Δ| ≤ tol · (1 + |plain|). The serving kernels are also held
 # to bounds derived from rounding (rms_bound here; flash_bound in the flash
@@ -175,6 +197,195 @@ def kernel_ms(fn, reps: int, symbol: str):
     if n:
         return sum(ms * c for ms, c in rows.values()) / n, "profiler", f"{n}/{reps}"
     return queued_ms(fn, reps), "queued_cuda_events", f"0/{reps}"
+
+
+def least_s(fn, reps: int) -> float:
+    """Least host-clock seconds of ``fn`` followed by a synchronize, over
+    ``reps`` warmed calls."""
+    fn()
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return min(secs)
+
+
+def cost_constants(dev, lib, card) -> dict:
+    """The host-offload cost model's constants as this card gives them:
+    pinned host→device and device→host copy bandwidth (64 MB, least of 10),
+    a 4 KB copy (the DMA initiation; least of 100) and an empty launch plus
+    synchronize (least of 100), each beside the constant committed in
+    ``repro_torch.core.cost``."""
+    from repro_torch.core import cost
+    from repro_torch.kernels.conv_window.kernel import _raw_stream
+
+    n = COPY_BYTES
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    card_buf = torch.empty(n, dtype=torch.uint8, device=dev)
+    h2d_s = least_s(lambda: card_buf.copy_(host, non_blocking=True), 10)
+    d2h_s = least_s(lambda: host.copy_(card_buf, non_blocking=True), 10)
+    small_h, small_d = host[:4096], card_buf[:4096]
+    dma_s = least_s(lambda: small_d.copy_(small_h, non_blocking=True), 100)
+    stream = _raw_stream(dev.index)
+    launch_s = least_s(lambda: lib.repro_empty_launch(32, stream), 100)
+    return {
+        "card": card, "copy_bytes": n,
+        "h2d_bytes_per_s": n / h2d_s, "d2h_bytes_per_s": n / d2h_s,
+        "pcie_bw_measured": min(n / h2d_s, n / d2h_s),
+        "pcie_bw_committed": getattr(cost, "PCIE_BW", None),
+        "dma_init_s_measured": dma_s,
+        "dma_init_s_committed": getattr(cost, "DMA_INIT_S", None),
+        "launch_s_measured": launch_s,
+        "launch_s_committed": getattr(cost, "LAUNCH_S", None),
+    }
+
+
+def _same_partition(a, b) -> bool:
+    return (a.bounds == b.bounds and [x.total for x in a.bursts] == [x.total for x in b.bursts]
+            and a.e_total == b.e_total)
+
+
+def plan_table_path(cache_dir):
+    """The paper's step 4 on the card: every table of PLAN_TABLES built
+    through the façade's ``cuda`` backend (Q grid by ``derive_q_grid`` on the
+    kernel's minimax mode, cells on its sum mode), an exact-K solve per
+    bucket, the probe at k=8, a second build from ``cache_dir``, and the
+    offload and remat plans of the memory table. Returns the tables and a
+    record per table; the checks against the numpy backend run after."""
+    from repro_torch.api import PartitionSpec, solve
+    from repro_torch.configs import get_config
+    from repro_torch.core.layer_profile import default_cost_model
+    from repro_torch.core.plan_table import BUILD_STATS, build_plan_table, probe_plan_table
+    from repro_torch.launch.planner import ServePlanner, derive_q_grid, lower_buckets
+
+    out = []
+    for arch, kind, buckets in PLAN_TABLES:
+        cfg, cm = get_config(arch), default_cost_model(kind)
+        t0 = time.perf_counter()
+        graphs = lower_buckets(cfg, buckets, kind)
+        qs = derive_q_grid(graphs, cm, PLAN_Q_POINTS, backend="cuda")
+        table = build_plan_table(cfg, buckets, qs, kind=kind, cost=cm, graphs=graphs,
+                                 backend="cuda")
+        build_s = time.perf_counter() - t0
+        exact_k = []
+        for b, g in enumerate(graphs):
+            bi = table.buckets().index(buckets[b])
+            k0 = int(np.flatnonzero(table.feasible[bi])[0])
+            spec = dict(graph=g, cost=cm, objective="exact_k", q_max=table.q_values()[k0],
+                        n_bursts=table.plan_at(bi, k0).n_cycles)
+            exact_k.append((spec, solve(PartitionSpec(backend="cuda", **spec)).partition()))
+        probed = probe_plan_table(table, cfg, k=8, cost=cm, backend="cuda")
+        hits = BUILD_STATS["cache_hits"]
+        for _ in range(2):
+            cached = build_plan_table(cfg, buckets, qs, kind=kind, cost=cm,
+                                      cache_dir=str(cache_dir), backend="cuda")
+        priced = []
+        if kind == "memory":
+            planner = ServePlanner(table)
+            budget = max(q for q in table.q_values() if q is not None)
+            for bt, sq in buckets:
+                off = planner.offload_plan(cfg, bt, sq, budget)
+                rem = planner.remat_plan(cfg, bt, sq, budget)
+                priced.append([bt, sq, off.n_segments, off.pcie_seconds,
+                               rem.n_segments, rem.recompute_seconds])
+        out.append({"arch": arch, "kind": kind, "cfg": cfg, "cost": cm, "qs": qs,
+                    "table": table, "cached": cached, "exact_k": exact_k,
+                    "cache_hit": BUILD_STATS["cache_hits"] == hits + 1,
+                    "probed": probed, "build_s": build_s, "priced": priced})
+    return out
+
+
+def plan_table_checks(built) -> list:
+    """Each cuda-built table against the same build on the numpy backend,
+    bitwise; the probe must see one altered cell; exact-K on the kernel
+    equals the numpy backend's. Raises on any miss; one record per table."""
+    from repro_torch.api import PartitionSpec, solve
+    from repro_torch.core.plan_table import (PlanTable, StaleTableError, build_plan_table,
+                                             probe_plan_table)
+
+    rows = []
+    for t in built:
+        table, cfg, cm = t["table"], t["cfg"], t["cost"]
+        want = build_plan_table(cfg, table.buckets(), t["qs"], kind=t["kind"], cost=cm,
+                                backend="numpy")
+        equal = all(np.array_equal(getattr(table, n), getattr(want, n))
+                    for n in PlanTable._PAYLOAD)
+        same_k = all(_same_partition(got, solve(PartitionSpec(backend="numpy", **spec))
+                                     .partition()) for spec, got in t["exact_k"])
+        arrays = {n: getattr(table, n).copy() for n in PlanTable._PAYLOAD}
+        seg = int(table.seg_ptr[int(np.flatnonzero(table.feasible.reshape(-1))[-1])])
+        arrays["cycle_energy"][seg] = np.nextafter(arrays["cycle_energy"][seg], np.inf)
+        try:
+            probe_plan_table(PlanTable(table.header, **arrays), cfg, k=None, cost=cm,
+                             backend="cuda")
+            sees_altered = False
+        except StaleTableError:
+            sees_altered = True
+        row = {"arch": t["arch"], "kind": t["kind"], "buckets": table.buckets(),
+               "n_q": table.n_q, "cells": int(table.feasible.size),
+               "feasible_cells": int(table.feasible.sum()), "build_s": t["build_s"],
+               "table_bytes": table.nbytes(), "digest": table.content_digest(),
+               "bitwise_equal_numpy_build": equal and table.content_digest() == want.content_digest(),
+               "exact_k_equal_numpy": same_k, "probe_k8_clean": t["probed"] == 8,
+               "probe_sees_altered_cell": sees_altered, "cache_hit": t["cache_hit"]
+               and t["cached"].content_digest() == table.content_digest()}
+        if t["priced"]:
+            row["offload_remat"] = t["priced"]
+        rows.append(row)
+        if not all(row[k] for k in ("bitwise_equal_numpy_build", "exact_k_equal_numpy",
+                                    "probe_k8_clean", "probe_sees_altered_cell", "cache_hit")):
+            raise AssertionError(f"plan table check failed: {row}")
+    return rows
+
+
+def runtime_trace(g, part, dev, atomic_headcount) -> dict:
+    """The head count's Q_min partition under the runtime with the tracer on
+    and one power failure: one burst span per attempt, one ``nvm_commit`` per
+    committed burst (= ``COMMIT_STATS["commits"]`` = ``on_commit`` calls),
+    one replay per power failure, the head count of atomic execution."""
+    from repro_torch.core.runtime import (COMMIT_STATS, BurstRuntime, MemoryNVM,
+                                          PowerFailure, reset_commit_stats)
+    from repro_torch.obs.trace import TRACER
+
+    crash_at = part.n_bursts // 2
+    fired, commits = [], []
+
+    def crash_once(b, phase):
+        if b == crash_at and phase == "executed" and not fired:
+            fired.append(b)
+            raise PowerFailure(f"injected at burst {b}")
+
+    reset_commit_stats()
+    rt = BurstRuntime(g, part, MemoryNVM(), crash_hook=crash_once, on_commit=commits.append,
+                      device=dev)
+    TRACER.configure(enabled=True)
+    t0 = time.perf_counter()
+    try:
+        out = rt.run_to_completion({})
+        torch.cuda.synchronize()
+    finally:
+        TRACER.disable()
+    seconds = time.perf_counter() - t0
+    names = [e["name"] for e in TRACER.events()]
+    TRACER.reset()
+    row = {"bursts": part.n_bursts, "power_failures": len(fired),
+           "spans": names.count("burst"), "nvm_commits": names.count("nvm_commit"),
+           "commit_stats": dict(COMMIT_STATS), "on_commit_calls": len(commits),
+           "replays": names.count("replay"), "power_failure_instants": names.count("power_failure"),
+           "headcount": int(out["headcount"]), "headcount_atomic": atomic_headcount,
+           "seconds_traced": seconds}
+    ok = (row["spans"] == rt.stats.bursts_run + len(fired) == part.n_bursts + 1
+          and row["nvm_commits"] == COMMIT_STATS["commits"] == len(commits) == part.n_bursts
+          and row["replays"] == COMMIT_STATS["replays"] == row["power_failure_instants"]
+          == len(fired) == 1
+          and row["headcount"] == atomic_headcount)
+    row["ok"] = ok
+    if not ok:
+        raise AssertionError(f"runtime trace check failed: {row}")
+    return row
 
 
 # -- graphs for the sweep comparisons ----------------------------------------
@@ -1312,6 +1523,15 @@ def main() -> int:
           "nvidia_smi": card, "build_s": time.perf_counter() - t0,
           "flash_tensor_core_sass": sass["flash"], "mlstm_tensor_core_sass": sass["mlstm"]})
 
+    # -- phase 1b: the host-offload cost model's constants on this card -------
+    t0 = time.perf_counter()
+    consts = cost_constants(dev, lib, card)
+    consts["seconds"] = time.perf_counter() - t0
+    measured = [v for k, v in consts.items() if k.endswith("_measured")]
+    if not all(np.isfinite(v) and v > 0 for v in measured):
+        raise AssertionError(f"cost constants not measured: {consts}")
+    emit({"phase": "cost_constants", **consts})
+
     sweep_err = {"max_abs_err": 0.0, "bests_mismatches": 0, "comparisons": 0}
 
     def sweep_pair(csr, cost, mode, dev_plain):
@@ -1538,6 +1758,32 @@ def main() -> int:
         raise AssertionError(f"execution trace: {conv_launches} CNN kernel launches for "
                              f"{n_cnn} CNN tasks; other ops once per task: {per_task}")
 
+    # -- phase 6b: the runtime traced, with one power failure ------------------
+    # One frame launch per CNN task run: every task once, and the CNN tasks
+    # of the burst the power failure replays.
+    conv_window_frame_cuda.launches = 0
+    trace_row = runtime_trace(g_exec, part, dev, r["headcount_atomic"])
+    trace_row["conv_window_frame_launches"] = conv_window_frame_cuda.launches
+    trace_row["conv_window_frame_expected"] = n_cnn + replayed
+    emit({"phase": "runtime_trace", "what": "Q_min partition, full THERMAL", **trace_row})
+    if trace_row["conv_window_frame_launches"] != n_cnn + replayed:
+        raise AssertionError(f"runtime trace: CNN launches {trace_row}")
+
+    # -- phase 6c: plan tables of qwen3-4b and xlstm-1.3b on the sweep kernel --
+    cache_dir = ROOT / "build" / "plan_table_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    sweep_columns_cuda.launches = 0
+    t0 = time.perf_counter()
+    built = plan_table_path(cache_dir)
+    plan_s = time.perf_counter() - t0
+    plan_launches = sweep_columns_cuda.launches
+    t0 = time.perf_counter()
+    plan_rows = plan_table_checks(built)
+    emit({"phase": "plan_table", "seconds": plan_s, "checks_s": time.perf_counter() - t0,
+          "sweep_launches": plan_launches, "tables": plan_rows})
+    if plan_launches < 1:
+        raise AssertionError("the plan-table path launched no sweep kernel")
+
     # -- phases 7-11: the serving kernels, the serving path, every flash cell,
     # parity, trace ------------------------------------------------------------
     from repro_torch.configs import get_config
@@ -1602,7 +1848,10 @@ def main() -> int:
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
-        "launches": launches["partition_sweep"], "max_abs_err": sweep_err["max_abs_err"],
+        "launches": launches["partition_sweep"] + plan_launches,
+        "launches_by_path": {"headcount": launches["partition_sweep"],
+                             "plan_table": plan_launches},
+        "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],
         **totals, "ms_from": sorted(ms_from),

@@ -1,15 +1,31 @@
-"""Burst energy model E⟨i,j⟩ (paper §4.2), transliterated from the paper's
-equations. Used to price the bursts of a partition the sweep kernel chose."""
+"""Burst energy model E⟨i,j⟩ (paper §4.2).
+
+:func:`burst_detail` / :func:`burst_cost` transliterate the paper's
+equations and price the bursts of a partition the sweep kernel chose;
+:class:`ColumnSweep` yields the columns E⟨·,j⟩ incrementally for the numpy
+DP (the port's copy of ``repro/core/burst.py``; the sweep kernel replays
+the same updates on the CSR export).
+
+The incremental update (1-based, burst = tasks i..j):
+
+    E⟨i,j⟩ = E⟨i,j-1⟩ + E_task(j)
+           + Σ E_r(p)   for p ∈ reads(j) with l_j(p) < i          (new loads)
+           + Σ E_w(p)   for p ∈ writes(j) with l_∞(p) > j         (new stores)
+           - Σ E_w(p)   for p ∈ reads(j) with i ≤ writer(p) < j
+                                         and l_∞(p) == j          (store no longer needed)
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List
+from typing import Iterator, List
+
+import numpy as np
 
 from .cost import CostModel
 from .graph import TaskGraph
 
-__all__ = ["BurstDetail", "burst_detail", "burst_cost"]
+__all__ = ["BurstDetail", "burst_detail", "burst_cost", "ColumnSweep"]
 
 
 @dataclasses.dataclass
@@ -68,3 +84,54 @@ def burst_detail(graph: TaskGraph, cost: CostModel, i: int, j: int) -> BurstDeta
 def burst_cost(graph: TaskGraph, cost: CostModel, i: int, j: int) -> float:
     """E⟨i,j⟩ (scalar)."""
     return burst_detail(graph, cost, i, j).total
+
+
+class ColumnSweep:
+    """Iterates j = 1..n_t, yielding the column ``E⟨·,j⟩``.
+
+    After ``col = next(sweep)``, ``col[i]`` equals ``E⟨i,j⟩`` for
+    ``1 <= i <= j`` (entries outside that range are undefined). The array
+    yielded is a live buffer — callers must not mutate it.
+    """
+
+    def __init__(self, graph: TaskGraph, cost: CostModel):
+        self.graph = graph
+        self.cost = cost
+        n = graph.n_tasks
+        self._col = np.full(n + 2, np.nan, dtype=np.float64)
+        # Precompute per-task constants.
+        self._e_task = np.array([t.cost for t in graph.tasks], dtype=np.float64)
+        self._store_add = np.zeros(n + 1, dtype=np.float64)  # Σ E_w over writes with l_inf > j
+        for j in range(1, n + 1):
+            t = graph.task(j)
+            self._store_add[j] = sum(
+                cost.e_w(graph.packets[w]) for w in t.writes if graph.l_inf[w] > j
+            )
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        g, c = self.graph, self.cost
+        col = self._col
+        for j in range(1, g.n_tasks + 1):
+            t = g.task(j)
+            e_task_j = self._e_task[j - 1]
+            store_j = self._store_add[j]
+            lts = g.read_last_touch[j - 1]
+            # 1) extend all existing bursts ⟨i, j-1⟩ with task j
+            if j > 1:
+                col[1:j] += e_task_j + store_j
+                sum_er = 0.0
+                for name, lt in zip(t.reads, lts):
+                    p = g.packets[name]
+                    er = c.e_r(p)
+                    sum_er += er
+                    if lt + 1 < j:  # loads appear for bursts starting after last touch
+                        col[lt + 1 : j] += er
+                    if g.l_inf[name] == j:
+                        w = g.writer(name)
+                        if w >= 1:  # store of p is no longer needed when writer in burst
+                            col[1 : w + 1] -= c.e_w(p)
+            else:
+                sum_er = sum(c.e_r(g.packets[name]) for name in t.reads)
+            # 2) the new single-task burst ⟨j,j⟩
+            col[j] = c.e_startup + sum_er + e_task_j + store_j
+            yield col

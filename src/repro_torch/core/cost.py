@@ -3,7 +3,9 @@
 The port's copy of the transfer/startup model of ``repro/core/cost.py``:
 ``E(p) = c0 * p.c0_weight + c1 * p.nbytes`` per direction plus a startup
 cost ``E_s`` per burst. "Energy" is any additive scalar; the paper's
-instance is Joules on the FRAM/LPC54102 prototype.
+instance is Joules on the FRAM/LPC54102 prototype, the H100's instance
+seconds (time-as-energy: volatile = HBM, NVM = pinned host memory over
+PCIe), priced with the H100's own constants below.
 """
 
 from __future__ import annotations
@@ -21,6 +23,12 @@ __all__ = [
     "cost_scalars",
     "cost_from_scalars",
     "PAPER_FRAM_MODEL",
+    "PEAK_FLOPS",
+    "HBM_BW",
+    "PCIE_BW",
+    "DMA_INIT_S",
+    "LAUNCH_S",
+    "h100_host_offload_model",
 ]
 
 
@@ -76,3 +84,33 @@ PAPER_FRAM_MODEL = CostModel(
     write=LinearTransfer(c0=0.9e-6, c1=6.2e-9),  # E_w(p) = 0.9 µJ + |p| · 6.2 nJ/B
     name="paper-fram",
 )
+
+
+# H100 instance. Units: seconds. PEAK_FLOPS and HBM_BW are NVIDIA's H100
+# SXM data sheet figures at its 700 W limit (bf16 dense on the tensor cores;
+# HBM3). PCIE_BW, DMA_INIT_S and LAUNCH_S were measured on an NVIDIA H100
+# 80GB HBM3 at 700.00 W by chip_smoke.py's cost_constants phase (median of
+# three rounds): pinned 64 MB copies read 47.5-50.0 GB/s host→device and
+# 54.8-55.0 device→host (the slower direction is kept); a pinned 4 KB copy
+# plus synchronize 10.6-15.0 µs; an empty launch plus synchronize 8.6-12.5
+# µs.
+PEAK_FLOPS = 989e12
+HBM_BW = 3.35e12
+PCIE_BW = 48.8e9
+DMA_INIT_S = 14.6e-6
+LAUNCH_S = 12.3e-6  # per-segment dispatch: one launch and its synchronize
+
+
+def h100_host_offload_model(
+    pcie_bw: float = PCIE_BW,
+    dma_init_s: float = DMA_INIT_S,
+    launch_s: float = LAUNCH_S,
+) -> CostModel:
+    """Activation offload on one H100: volatile = HBM, NVM = pinned host
+    memory over PCIe."""
+    return CostModel(
+        e_startup=launch_s,
+        read=LinearTransfer(c0=dma_init_s, c1=1.0 / pcie_bw),
+        write=LinearTransfer(c0=dma_init_s, c1=1.0 / pcie_bw),
+        name="h100-host-offload",
+    )

@@ -13,6 +13,11 @@ declared inputs.
         execute the burst's tasks on device-resident packets only
         store packets needed by later bursts → NVM
         atomically commit index + 1
+
+Each committed burst and each replayed one counts in the process-global
+``COMMIT_STATS``; with the tracer on (:data:`repro_torch.obs.trace.TRACER`)
+every burst is a span on the runtime track, with ``power_failure``,
+``replay`` and ``nvm_commit`` instants inside it.
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..obs.metrics import METRICS
+from ..obs.trace import PID_RUNTIME, TRACER
 from .cost import CostModel
 from .graph import TaskGraph
 from .partition import Partition
@@ -39,7 +46,20 @@ __all__ = [
     "BurstRuntime",
     "ExecutionStats",
     "execute_atomic",
+    "COMMIT_STATS",
+    "reset_commit_stats",
 ]
+
+# Every committed burst and every replayed one (a re-run of an index whose
+# first attempt lost power before the commit), across all runtimes of the
+# process. Consumers snapshot and diff; registry-backed, a dict to callers.
+COMMIT_STATS = METRICS.counter_dict("runtime.commit_stats", ("commits", "replays"))
+
+
+def reset_commit_stats() -> None:
+    """Zero the process-global commit counters (NVM state and each
+    runtime's :class:`ExecutionStats` are untouched)."""
+    COMMIT_STATS.reset()
 
 
 class PowerFailure(RuntimeError):
@@ -58,6 +78,9 @@ class MemoryNVM:
 
     def read(self, name: str) -> Any:
         return self._data[name]
+
+    def has(self, name: str) -> bool:
+        return name in self._data
 
     def read_index(self) -> int:
         return self._index
@@ -87,6 +110,9 @@ class DirNVM:
     def read(self, name: str) -> Any:
         with open(self._file(name), "rb") as fh:
             return pickle.load(fh)
+
+    def has(self, name: str) -> bool:
+        return os.path.exists(self._file(name))
 
     def read_index(self) -> int:
         f = os.path.join(self.path, "burst_index")
@@ -144,6 +170,7 @@ class BurstRuntime:
         nvm: Optional[Any] = None,
         cost: Optional[CostModel] = None,
         crash_hook: Optional[CrashHook] = None,
+        on_commit: Optional[Callable[[int], None]] = None,
         device="cuda",
     ) -> None:
         partition.validate(graph)
@@ -152,17 +179,35 @@ class BurstRuntime:
         self.nvm = nvm if nvm is not None else MemoryNVM()
         self.cost = cost
         self.crash_hook = crash_hook
+        self.on_commit = on_commit
         self.device = resolve_device(device)
         self.stats = ExecutionStats()
         self._attempted: Set[int] = set()
 
     def _run_burst(self, b: int) -> None:
+        # One span per energy cycle, a power failure as an instant in it;
+        # with the tracer off this costs one attribute check.
+        if not TRACER.enabled:
+            return self._run_burst_impl(b)
+        with TRACER.span(
+            "burst", cat="runtime", pid=PID_RUNTIME, index=b, replay=b in self._attempted
+        ):
+            try:
+                self._run_burst_impl(b)
+            except PowerFailure:
+                TRACER.instant("power_failure", cat="runtime", pid=PID_RUNTIME, index=b)
+                raise
+
+    def _run_burst_impl(self, b: int) -> None:
         i, j = self.partition.bounds[b]
         g = self.graph
         detail = self.partition.bursts[b]
         volatile: Dict[str, torch.Tensor] = {}
         if b in self._attempted:  # a prior attempt lost power before commit
             self.stats.replays += 1
+            COMMIT_STATS["replays"] += 1
+            if TRACER.enabled:
+                TRACER.instant("replay", cat="runtime", pid=PID_RUNTIME, index=b)
         self._attempted.add(b)
 
         for name in self._load_set(i, j):
@@ -190,8 +235,15 @@ class BurstRuntime:
 
         self.nvm.commit_index(b + 1)  # linearization point
         self.stats.bursts_run += 1
+        COMMIT_STATS["commits"] += 1
+        if TRACER.enabled:
+            TRACER.instant("nvm_commit", cat="runtime", pid=PID_RUNTIME, index=b)
         if self.cost is not None:
             self.stats.energy += detail.total
+        if self.on_commit is not None:
+            # after the linearization point: a crash in the observer cannot
+            # lose the burst
+            self.on_commit(b)
         # power off: the burst's device tensors are dropped on return
 
     def _load_set(self, i: int, j: int) -> Tuple[str, ...]:

@@ -3,10 +3,12 @@
     python -m repro_torch.launch.headcount [--spec thermal|visual] [--device cuda]
 
 On the unreduced 5458-task graph (``--reduce`` shrinks the CNN task counts
-for quick runs): the CSR export; Q_min on the sweep kernel's minimax mode;
-the 9-point Q grid (Q_min, seven geometric points up to 1.05·E_app,
-unbounded) on its sum mode; exact-K at Q_min with K the burst count of the
-Q_min partition; the Fig. 6 table (bursts, E_total, overhead, storage
+for quick runs): the CSR export; then, through the façade
+(:func:`repro_torch.api.solve`: the sweep kernel on the card, its plain
+version with ``--device cpu``), Q_min on the kernel's minimax mode, the
+9-point Q grid (Q_min, seven geometric points up to 1.05·E_app, unbounded)
+on its sum mode, and exact-K at Q_min with K the burst count of the Q_min
+partition; the Fig. 6 table (bursts, E_total, overhead, storage
 reduction against the whole-application burst); then the Q_min partition
 executed under :class:`BurstRuntime` with one injected power failure, its
 head count compared with atomic execution. Prints one JSON object per line;
@@ -18,18 +20,20 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..api import PartitionSpec, Solution, solve
 from ..core.apps.headcount import THERMAL, VISUAL, build_graph, paper_cost_model
-from ..core.partition import whole_app_partition
-from ..core import partition_torch as pt
+from ..core.cost import CostModel
+from ..core.graph import TaskGraph
+from ..core.partition import Partition, whole_app_partition
 from ..core.runtime import BurstRuntime, MemoryNVM, PowerFailure, execute_atomic
 from ..device import resolve_device
 
-__all__ = ["run", "main", "SEED"]
+__all__ = ["run", "solve_partitions", "main", "SEED"]
 
 SPECS = {"thermal": THERMAL, "visual": VISUAL}
 SEED = 3  # CNN weights and input frame of examples/headcount_partition.py
@@ -42,6 +46,26 @@ def _sync(dev: torch.device) -> None:
 
 def _print_json(record: Dict[str, object]) -> None:
     print(json.dumps(record), flush=True)
+
+
+def solve_partitions(
+    g: TaskGraph, cm: CostModel, dev: torch.device
+) -> Tuple[float, List[Optional[float]], Solution, Partition]:
+    """The head count's solve through the façade on ``dev``'s backend:
+    (Q_min, the 9-point Q grid, its sum solution, the exact-K partition at
+    Q_min with K the burst count of the Q_min partition)."""
+    backend = "cuda" if dev.type == "cuda" else "torch"
+    qmn = solve(PartitionSpec(graph=g, cost=cm, objective="minimax",
+                              backend=backend)).q_min()
+    e_app = g.total_task_cost()
+    qs: List[Optional[float]] = (
+        [qmn] + [float(q) for q in np.geomspace(qmn * 1.01, e_app * 1.05, 7)] + [None]
+    )
+    sol = solve(PartitionSpec(graph=g, cost=cm, q_grid=tuple(qs), backend=backend))
+    k = len(sol.sweep.bounds(0))
+    part_k = solve(PartitionSpec(graph=g, cost=cm, objective="exact_k", n_bursts=k,
+                                 q_max=qmn, backend=backend)).partition()
+    return qmn, qs, sol, part_k
 
 
 def run(spec_name: str = "thermal", device="cuda", reduce: int = 0,
@@ -59,16 +83,11 @@ def run(spec_name: str = "thermal", device="cuda", reduce: int = 0,
           "read_slots": csr.nnz_reads, "csr_bytes": csr.nbytes})
 
     t0 = time.perf_counter()
-    qmn = pt.q_min(g, cm, device=dev)
+    qmn, qs, sol, part_k = solve_partitions(g, cm, dev)
+    solve_s = time.perf_counter() - t0
+    res, k = sol.sweep, part_k.n_bursts
     e_app = g.total_task_cost()
     q_whole = whole_app_partition(g, cm).max_burst
-    qs: List[Optional[float]] = (
-        [qmn] + [float(q) for q in np.geomspace(qmn * 1.01, e_app * 1.05, 7)] + [None]
-    )
-    res = pt.sweep(g, cm, qs, device=dev)
-    k = len(res.bounds(0))
-    part_k = pt.exact_k_partition(g, cm, k, qmn, device=dev)
-    solve_s = time.perf_counter() - t0
 
     rows = []
     for qi, q in enumerate(qs):
@@ -87,7 +106,7 @@ def run(spec_name: str = "thermal", device="cuda", reduce: int = 0,
           "exact_k": {"k": k, "e_total": part_k.e_total, "max_burst": part_k.max_burst}})
 
     # Execute the Q_min partition with one power failure halfway through.
-    part = res.to_partitions(g, cm)[0]
+    part = sol.partition()
     crash_at = part.n_bursts // 2
     fired: List[int] = []
 

@@ -1,20 +1,17 @@
 """The port's plain sweep and partitioner are bitwise equal to the numpy oracles.
 
-The reference's CSR oracle ``repro/kernels/partition_sweep/ref.py`` cannot be
-imported the normal way (its package ``__init__`` pulls in the Pallas
-wrapper), so it is loaded by file path. The port runs on ``device="cpu"``,
-where the sweep wrapper takes the plain PyTorch version; the CUDA kernel is
-held against that same plain version on the card by ``chip_smoke.py``.
+The reference's CSR oracle ``repro/kernels/partition_sweep/ref.py`` is
+loaded by file path (``helpers_torch.load_ref_oracle``). The port runs on
+``device="cpu"``, where the sweep wrapper takes the plain PyTorch version;
+the CUDA kernel is held against that same plain version on the card by
+``chip_smoke.py``.
 """
 
-import importlib.util
 import random
-from pathlib import Path
 
 import numpy as np
 import pytest
 
-import repro.core
 from helpers_random import (
     adversarial_tie_graph,
     random_cost_model,
@@ -23,42 +20,20 @@ from helpers_random import (
     tie_cost_model,
     tie_q_grid,
 )
+from helpers_torch import load_ref_oracle, port_of
 from repro.api import PartitionSpec, solve
 from repro.core import q_min as ref_q_min
 from repro.core import whole_app_partition as ref_whole_app
 from repro.core.apps import headcount as ref_hc
-from repro.core.cost import cost_scalars as ref_cost_scalars
 from repro.core.partition import Infeasible as RefInfeasible
 
 from repro_torch.core import partition_torch as pt
 from repro_torch.core.apps import headcount as hc
-from repro_torch.core.cost import cost_from_scalars
-from repro_torch.core.graph import graph_from_description
 from repro_torch.core.partition import Infeasible
 from repro_torch.kernels.partition_sweep import ops
 
 CPU = "cpu"
-
-
-def _load_ref():
-    path = Path(repro.core.__file__).parents[1] / "kernels" / "partition_sweep" / "ref.py"
-    spec = importlib.util.spec_from_file_location(
-        "repro.kernels.partition_sweep.ref", path)
-    mod = importlib.util.module_from_spec(spec)
-    mod.__package__ = "repro.kernels.partition_sweep"
-    spec.loader.exec_module(mod)
-    return mod
-
-
-REF = _load_ref()
-
-
-def port_of(g, cm):
-    packets = [dict(name=p.name, nbytes=p.nbytes, c0_weight=p.c0_weight,
-                    keep=p.keep, external=p.external) for p in g.packets.values()]
-    tasks = [dict(name=t.name, reads=t.reads, writes=t.writes, cost=t.cost)
-             for t in g.tasks]
-    return graph_from_description(packets, tasks), cost_from_scalars(ref_cost_scalars(cm))
+REF = load_ref_oracle()
 
 
 def assert_tables(got, want):
