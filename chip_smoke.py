@@ -7,7 +7,7 @@ Builds the port's CUDA kernels from the sources in this checkout, measures
 the host-offload cost model's constants (pinned copy bandwidth both ways, a
 4 KB copy, an empty launch) beside those committed in
 ``repro_torch.core.cost``, holds each kernel against its plain PyTorch
-version on the card, and drives the port's four paths:
+version on the card, and drives the port's paths:
 
 1. the head count (``repro_torch.launch.headcount.run``: partition the full
    5458-task THERMAL head count on the sweep kernel, then execute the Q_min
@@ -40,7 +40,21 @@ version on the card, and drives the port's four paths:
    4 × prompt 512 × 16 tokens, then batch 1 × prompt 1024 × 8 tokens; every
    mLSTM prefill cell through the chunked-mLSTM kernel), checked cell by
    cell at full width against rounding-derived bounds, and end to end in
-   float32 against the plain path on a float32 copy of the weights.
+   float32 against the plain path on a float32 copy of the weights;
+5. each decode step of both models is one CUDA graph replay (one capture
+   per request shape, counted by ``TRACE_COUNT``; a replay adds the kernel
+   launches its graph holds), held against the eager masked decode on the
+   same request (each step's logits, the tokens, no capture on a second
+   request), with decode ms/token and one step's idle share of each path;
+6. planned serving (``serve(plan_table=...)``) at full width on the time
+   tables the plan_table phase built: qwen3-4b b4 × p512 × g16 in 4 energy
+   cycles with one power failure, xlstm-1.3b b1 × p512 × g8 in 3 cycles,
+   each equal to unplanned serving in tokens, with one commit per cycle,
+   no build, capture or solve on the request path, and the NVM's bytes and
+   copy times;
+7. the traffic harness over qwen3-4b's planned executor at full width
+   (3 arrivals of b1 × p128 × g8 against a harvest pool that defers one),
+   tokens equal to unplanned serving, requests/s and latency percentiles.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -571,14 +585,12 @@ def model_kernel_checks(dev):
 
 def serve_path(dev, cfg, requests, want_params, want_launches):
     """A serving main path: build ``cfg``'s model at full width, serve
-    ``requests`` (batch, prompt, generated tokens) through the kernels,
-    count the launches. ``want_params``: (param_count(), the parameter
-    tensors' numel); ``want_launches``: {kernel: launches over all the
-    requests}."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
-    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
-    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
-    from repro_torch.launch.serve import serve
+    ``requests`` (batch, prompt, generated tokens) through the kernels and
+    the graphed decode, count the launches (a replay adds the launches its
+    graph holds) and the decode captures (one per request shape).
+    ``want_params``: (param_count(), the parameter tensors' numel);
+    ``want_launches``: {kernel: launches over all the requests}."""
+    from repro_torch.launch.serve import TRACE_COUNT, serve
     from repro_torch.models import api
 
     torch.cuda.synchronize()
@@ -595,10 +607,10 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
                              f"{n_params}; want {want_params}")
 
     torch.cuda.reset_peak_memory_stats(dev)
-    counters = {"rmsnorm": rmsnorm_rows_cuda, "flash_attention": flash_attention_bkv_cuda,
-                "mlstm_chunk": mlstm_chunk_bh_cuda}
+    counters = serving_launches()
     for fn in counters.values():
         fn.launches = 0
+    captures0 = TRACE_COUNT["decode"]
     served = []
     t0 = time.perf_counter()
     for b, p, g in requests:
@@ -610,9 +622,13 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    ok = launches == want_launches and all(r["tokens_ok"] for r in served)
+    captures = TRACE_COUNT["decode"] - captures0
+    shapes = len({(b, p + g) for b, p, g in requests})
+    ok = (launches == want_launches and all(r["tokens_ok"] for r in served)
+          and captures == shapes)
     emit({"phase": "serve_path", "arch": cfg.name, "seconds": seconds, "requests": served,
           "launches": launches, "expected_launches": want_launches,
+          "decode_captures": captures, "request_shapes": shapes,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "ok": ok})
     if not ok:
         raise AssertionError(f"{cfg.name} serve path check failed")
@@ -806,6 +822,26 @@ def qwen_flash_cells(cfg, params, dev):
     return out
 
 
+def one_call(fn) -> dict:
+    """Where one call of ``fn`` spends its time: the host clock of a warmed
+    call ending in a synchronize, then the card's busy time, idle share and
+    largest kernels from a traced call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    rows = profile_device(fn)
+    busy_s = sum(t for t, _ in rows.values()) / 1e6
+    seen = busy_s > 0  # else the profiler saw no device activity: not measured
+    return {"host_s": host_s, "device_busy_s": busy_s if seen else None,
+            "idle_share": 1.0 - busy_s / host_s if seen else None,
+            "device_kernels": sum(c for _, c in rows.values()),
+            "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
+                                     key=lambda x: -x[1])[:8]}
+
+
 def serve_trace(cfg, params, dev, request=SERVE_REQUESTS[0]):
     """Where serving time goes: host clock of a warm prefill of ``request``
     (batch, prompt, generated tokens) and of one decode step after it,
@@ -825,25 +861,9 @@ def serve_trace(cfg, params, dev, request=SERVE_REQUESTS[0]):
         tok = state["logits"][:, -1].argmax(dim=-1, keepdim=True)
         api.decode_step(cfg, params, state["cache"], tok, p)
 
-    out = {"phase": "serve_trace", "arch": cfg.name,
-           "what": f"warm prefill b{b} x {p} and one decode step"}
-    for name, fn in (("prefill", prefill), ("decode_step", decode)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        host_s = time.perf_counter() - t0
-        rows = profile_device(fn)
-        busy_s = sum(t for t, _ in rows.values()) / 1e6
-        seen = busy_s > 0  # else the profiler saw no device activity: not measured
-        out[name] = {
-            "host_s": host_s, "device_busy_s": busy_s if seen else None,
-            "idle_share": 1.0 - busy_s / host_s if seen else None,
-            "device_kernels": sum(c for _, c in rows.values()),
-            "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
-                                     key=lambda x: -x[1])[:8]}
-    emit(out)
+    emit({"phase": "serve_trace", "arch": cfg.name,
+          "what": f"warm prefill b{b} x {p} and one decode step",
+          "prefill": one_call(prefill), "decode_step": one_call(decode)})
 
 
 # -- the xLSTM serving path -----------------------------------------------------
@@ -1217,6 +1237,7 @@ def mlstm_entry(dev, launches, errs):
         "source": "src/repro_torch/kernels/mlstm_chunk/csrc/mlstm_chunk.cu",
         "replaces": "src/repro/kernels/mlstm_chunk/kernel.py:27",
         "launches": sum(n["mlstm_chunk"] for n in launches.values()),
+        "launches_by_path": {path: n["mlstm_chunk"] for path, n in launches.items()},
         # y at the main path's inputs ("model"); split_stress's |y| reaches 2^13
         "max_abs_err": max(e for name, e in errs.items() if MLSTM_CASES[name][5] == "model"),
         "max_abs_err_by_case": errs,
@@ -1355,6 +1376,7 @@ def flash_entry(dev, launches, errs):
         "route_note": "bf16 on mma.sync tensor cores (flash_mma_kernel); float32 on the CUDA "
                       "cores (flash_f32_kernel), for checks",
         "launches": sum(n["flash_attention"] for n in launches.values()),
+        "launches_by_path": {path: n["flash_attention"] for path, n in launches.items()},
         "max_abs_err": max(errs.values()),
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
@@ -1482,6 +1504,269 @@ def conv_window_entry(dev, lib, launches, frame, windows, wl, batch_err) -> dict
         "batch_5452": batch[5452],
         "batch_other_n": {n: v for n, v in batch.items() if n != 5452},
     }
+
+
+# -- the decode graph, planned serving and traffic ---------------------------------
+
+# Planned serving: arch -> ((batch, prompt, generated tokens), decode steps a
+# cycle may hold, the cycle after whose execution a power failure strikes or
+# None). The budget is e_startup + steps · e_total: qwen3-4b's 16 tokens take
+# cycles of 5, 5, 5, 1 steps, xlstm-1.3b's 8 (max_seq 520, the table's 1×1024
+# bucket; b1 keeps its 0.7 GB state packets small on the host) 3, 3, 2.
+PLANNED = {SERVE_ARCH: ((4, 512, 16), 5, 1), XLSTM_ARCH: ((1, 512, 8), 3, None)}
+# The traffic harness: 3 arrivals at virtual time 0 of this shape, a harvest
+# pool of 1.5 requests' energy replenished at 0.9 a unit of virtual time
+# (tests/test_traffic.py's real-model run, here at full width).
+TRAFFIC_SHAPE = (1, 128, 8)
+TRAFFIC_ARRIVALS = 3
+
+
+def serving_launches() -> dict:
+    """The serving kernels' launch counts."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+
+    return {"rmsnorm": rmsnorm_rows_cuda, "flash_attention": flash_attention_bkv_cuda,
+            "mlstm_chunk": mlstm_chunk_bh_cuda}
+
+
+def step_launches(cfg) -> tuple:
+    """({kernel: launches} of one prefill, of one decode step) of ``cfg``:
+    one RMSNorm launch per norm site (a step's and a prefill's alike), one
+    flash launch per attention layer or one mLSTM launch per mLSTM block a
+    prefill."""
+    if cfg.family == "ssm":
+        norms = cfg.n_layers + 1
+        pre = {"flash_attention": 0,
+               "mlstm_chunk": cfg.n_layers - cfg.n_layers // cfg.slstm_every}
+    else:
+        norms = 4 * cfg.n_layers + 1
+        pre = {"flash_attention": cfg.n_layers, "mlstm_chunk": 0}
+    return ({"rmsnorm": norms, **pre},
+            {"rmsnorm": norms, "flash_attention": 0, "mlstm_chunk": 0})
+
+
+def serve_step_graphs(cfg, params, dev, request):
+    """The unplanned path's graphed decode (``_step_fns``, captured by
+    serve_path) against the eager masked decode on one request in one
+    process: the eager path is fed the graph path's tokens; each step's
+    logits must be bitwise equal, or else within one bf16 step of the
+    step's largest logit (cuBLAS may pick another algorithm under capture),
+    and argmax to the same token. Two requests through the graph add no
+    capture. Prints decode ms/token (host clock) and one step of each path
+    (host clock, the card's busy time, idle share)."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api
+
+    b, p, g = request
+    prompts = S._prompts(cfg, b, p, 0, dev)
+    prefill, decode = S._step_fns(cfg.name, False, b, p + g, dev, donate=True)
+    trace0 = dict(S.TRACE_COUNT)
+
+    def graphed():
+        logits, cache = prefill(params, {"tokens": prompts})
+        toks, steps = [S._argmax_token(logits)], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(g - 1):
+            logits, cache = decode(params, cache, toks[-1], p + i)
+            toks.append(S._argmax_token(logits))
+            steps.append(logits)
+        torch.cuda.synchronize()
+        return torch.cat(toks, dim=1), steps, (time.perf_counter() - t0) / (g - 1), cache
+
+    toks, g_steps, g_s, g_cache = graphed()
+    toks2, _, g2_s, _ = graphed()
+    captures = {k: S.TRACE_COUNT[k] - trace0[k] for k in trace0}
+
+    logits, cache = api.prefill(cfg, params, {"tokens": prompts}, p + g)
+    e_steps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(g - 1):
+        logits, cache = api.decode_step(cfg, params, cache, toks[:, i:i + 1], p + i)
+        e_steps.append(logits)
+    torch.cuda.synchronize()
+    e_s = (time.perf_counter() - t0) / (g - 1)
+    bitwise = sum(bool(torch.equal(a, e)) for a, e in zip(g_steps, e_steps))
+    diffs = [float((a.float() - e.float()).abs().max()) for a, e in zip(g_steps, e_steps)]
+    bounds = [BF16_STEP * float(e.float().abs().max()) for e in e_steps]
+    same_tokens = all(bool(torch.equal(S._argmax_token(e), toks[:, i + 1:i + 2]))
+                      for i, e in enumerate(e_steps))
+    row = {"phase": "serve_step_graphs", "arch": cfg.name,
+           "request": {"batch": b, "prompt": p, "gen": g},
+           "steps": g - 1, "bitwise_equal_steps": bitwise,
+           "max_abs_diff": max(diffs), "bound": min(bounds),
+           "bound_rule": "one bf16 step (2^-7) of the step's largest |logit|",
+           "tokens_equal_eager": same_tokens,
+           "second_request_tokens_equal": bool(torch.equal(toks, toks2)),
+           "captures_over_both_requests": captures,
+           "graph_decode_ms_per_token": [g_s * 1e3, g2_s * 1e3],
+           "eager_decode_ms_per_token": e_s * 1e3,
+           "graph_step": one_call(lambda: decode(params, g_cache, toks[:, -1:], p + g - 1)),
+           "eager_step": one_call(lambda: api.decode_step(cfg, params, cache, toks[:, -1:],
+                                                           p + g - 1))}
+    emit(row)
+    ok = (same_tokens and row["second_request_tokens_equal"] and not any(captures.values())
+          and all(d <= bd for d, bd in zip(diffs, bounds)))
+    if not ok:
+        raise AssertionError(f"{cfg.name}: graphed decode check failed")
+
+
+def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
+    """The planned path at full width on ``table`` (built on the sweep
+    kernel by the plan_table phase): warmed once, then one request under a
+    budget of e_startup + ``per_cycle`` · e_total with, if ``crash_after``
+    is a cycle index, one power failure after that cycle executed. Tokens
+    must equal the unplanned ``serve``'s; commits equal the cycles, one
+    replay per power failure; no build or capture, no sweep launch (no
+    solve), every lookup a hit; the serving kernels launch as the tasks run
+    say. Prints planned and unplanned seconds, the NVM bytes and the time of
+    one state packet's store and load and of the decode's copies into and
+    out of the graph. Returns the kernels' launches in the planned run."""
+    from repro_torch.core.runtime import (COMMIT_STATS, MemoryNVM, PowerFailure, _to_device,
+                                          _to_host)
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.planner import ServePlanner, request_cycles
+
+    b, p, g = request
+    planner = ServePlanner(table)
+    plan = table.lookup(b, p + g, None)
+    budget = table.e_startup + per_cycle * plan.e_total
+    S.PlannedExecutor(cfg.name, planner, device=dev, params={0: params}).warmup(
+        [(b, p, g, 0)], cycle_budget=budget)
+    S.serve(cfg.name, b, p, g, device=dev, params=params)   # warms the unplanned key
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = S.serve(cfg.name, b, p, g, device=dev, params=params)
+    unplanned_s = time.perf_counter() - t0
+
+    fired = []
+
+    def crash(bi, phase):
+        if bi == crash_after and phase == "executed" and not fired:
+            fired.append(bi)
+            raise PowerFailure(f"injected after cycle {bi} executed")
+
+    counters = serving_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    sweeps0, trace0, commit0 = sweep_columns_cuda.launches, dict(S.TRACE_COUNT), dict(COMMIT_STATS)
+    planner.reset_stats()
+    rep = {}
+    got = S.serve(cfg.name, b, p, g, device=dev, params=params, plan_table=planner,
+                  energy_budget=budget, nvm=MemoryNVM(), crash_hook=crash, report=rep)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    cycles = request_cycles(g, plan.e_total, budget, e_startup=table.e_startup)
+    stats, nvm = rep["runtime_stats"], rep["nvm"]
+    runs = [k for i, j in cycles for k in range(i, j + 1)]
+    if fired:
+        i, j = cycles[crash_after]
+        runs += range(i, j + 1)
+    pre, step = step_launches(cfg)
+    want_launches = {k: pre[k] * runs.count(1) + step[k] * (len(runs) - runs.count(1))
+                     for k in pre}
+    commits = {k: COMMIT_STATS[k] - commit0[k] for k in commit0}
+
+    # one state packet's NVM store and load, and the decode's copy into the
+    # graph's static inputs and out of it
+    name = f"state{cycles[-2][1] - 1}"  # task k writes state k-1; the last one stored
+    host = nvm.read(name)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = _to_device(host, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _to_host(state)
+    store_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in S._leaves(state["cache"]))
+    cap = S._step_fns(cfg.name, False, b, p + g, dev, donate=False)[1]._graphs[params]
+    feed_ms = cuda_ms(lambda: cap.feed(state["cache"], state["tok"], p), 5)
+    clone_ms = cuda_ms(lambda: S._map(torch.clone, cap.cache), 5)
+    del state
+    row = {"phase": "serve_planned", "arch": cfg.name,
+           "request": {"batch": b, "prompt": p, "gen": g}, "budget": budget,
+           "steps_per_cycle": per_cycle, "cycles": rep["cycles"],
+           "power_failures": len(fired), "commits": commits,
+           "bursts_run": stats.bursts_run, "tasks_run": stats.tasks_run,
+           "tokens_equal_unplanned": bool(torch.equal(got, want)),
+           "trace_count_delta": {k: S.TRACE_COUNT[k] - trace0[k] for k in trace0},
+           "sweep_launches": sweep_columns_cuda.launches - sweeps0,
+           "planner_stats": {k: v for k, v in rep["planner_stats"].items() if k != "by_bucket"},
+           "launches": launches, "expected_launches": want_launches,
+           "planned_s": rep["seconds"], "unplanned_s": unplanned_s,
+           "nvm_bytes_stored": stats.bytes_stored, "nvm_bytes_loaded": stats.bytes_loaded,
+           "state_packet": name, "state_cache_bytes": cache_bytes,
+           "state_store_ms": store_s * 1e3, "state_load_ms": load_s * 1e3,
+           "state_store_gb_s": cache_bytes / store_s / 1e9,
+           "state_load_gb_s": cache_bytes / load_s / 1e9,
+           "decode_copy_in_ms": feed_ms, "decode_copy_out_ms": clone_ms}
+    emit(row)
+    ps = row["planner_stats"]
+    ok = (row["tokens_equal_unplanned"] and rep["cycles"] == cycles
+          and stats.bursts_run == len(cycles) == commits["commits"]
+          and commits["replays"] == stats.replays == len(fired)
+          and len(fired) == (crash_after is not None)
+          and not any(row["trace_count_delta"].values()) and row["sweep_launches"] == 0
+          and ps["lookups"] == ps["hits"] == 1 and ps["misses"] == 0
+          and launches == want_launches)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: planned serving check failed")
+    return launches
+
+
+def traffic_path(cfg, params, dev, table):
+    """The traffic harness over qwen3-4b's PlannedExecutor at full width:
+    TRAFFIC_ARRIVALS arrivals of TRAFFIC_SHAPE at virtual time 0 against a
+    pool of 1.5 requests' tabulated energy replenished at 0.9 a unit. All
+    admitted and completed, at least one deferred, no build or capture
+    after the warm-up, every lookup a hit, tokens equal to the unplanned
+    ``serve``'s. Prints requests/s and latency percentiles; returns the
+    kernels' launches in the run."""
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.traffic import (HarvestModel, TrafficHarness,
+                                            deterministic_arrivals, request_energy)
+
+    b, p, g = TRAFFIC_SHAPE
+    ex = S.PlannedExecutor(cfg.name, table, device=dev, params={0: params})
+    plan = ex.planner.plan_for(b, p + g, None)
+    _, e_req = request_energy(plan, g, None, ex.planner.e_startup)
+    harness = TrafficHarness(ex, harvest=HarvestModel(capacity=1.5 * e_req, rate=0.9 * e_req),
+                             keep_tokens=True)
+    reqs = deterministic_arrivals(TRAFFIC_ARRIVALS, 0.0, (b, p, g))
+    harness.warmup(reqs)
+    want = S.serve(cfg.name, b, p, g, device=dev, params=params).numpy()
+    counters = serving_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    report = harness.run(reqs)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    pre, step = step_launches(cfg)
+    n = TRAFFIC_ARRIVALS
+    want_launches = {k: n * (pre[k] + (g - 1) * step[k]) for k in pre}
+    row = {"phase": "traffic", "arch": cfg.name, "shape": list(TRAFFIC_SHAPE),
+           "arrivals": n, "e_req": e_req, "summary": report.summary(),
+           "admitted": report.admitted, "completed": report.completed,
+           "deferred": report.deferred, "rejected": report.rejected,
+           "trace_delta": report.trace_delta, "hit_rate": report.hit_rate,
+           "commit_delta": report.commit_delta, "wall_s": report.wall_seconds,
+           "requests_per_s": report.requests_per_s,
+           "latency_ms": report.latency_percentiles_ms(),
+           "ledger_conserved": report.ledger_conserved,
+           "tokens_equal_unplanned": all(np.array_equal(report.tokens[r], want)
+                                         for r in range(n)),
+           "launches": launches, "expected_launches": want_launches}
+    emit(row)
+    ok = (report.admitted == report.completed == n and report.deferred >= 1
+          and not any(report.trace_delta.values()) and report.hit_rate == 1.0
+          and row["tokens_equal_unplanned"] and report.ledger_conserved
+          and launches == want_launches)
+    if not ok:
+        raise AssertionError("traffic check failed")
+    return launches
 
 
 def main() -> int:
@@ -1794,6 +2079,13 @@ def main() -> int:
     qwen_flash_cells(cfg, params, dev)
     serve_parity(cfg, params, dev)
     serve_trace(cfg, params, dev)
+    serve_step_graphs(cfg, params, dev, SERVE_REQUESTS[0])
+    time_tables = {t["arch"]: t["table"] for t in built if t["kind"] == "time"}
+    launches_by_path = {SERVE_ARCH: serve_launches}
+    launches_by_path[f"{SERVE_ARCH} planned"] = serve_planned(
+        cfg, params, dev, time_tables[SERVE_ARCH], *PLANNED[SERVE_ARCH])
+    launches_by_path[f"{SERVE_ARCH} traffic"] = traffic_path(
+        cfg, params, dev, time_tables[SERVE_ARCH])
     del params
     torch.cuda.empty_cache()
 
@@ -1805,9 +2097,12 @@ def main() -> int:
     xlstm_f32_parity(xcfg, xparams, dev)
     xlstm_bf16_parity(xcfg, xparams, dev)
     serve_trace(xcfg, xparams, dev, XLSTM_REQUESTS[0])
+    serve_step_graphs(xcfg, xparams, dev, XLSTM_REQUESTS[0])
+    launches_by_path[XLSTM_ARCH] = xlstm_launches
+    launches_by_path[f"{XLSTM_ARCH} planned"] = serve_planned(
+        xcfg, xparams, dev, time_tables[XLSTM_ARCH], *PLANNED[XLSTM_ARCH])
     del xparams
     torch.cuda.empty_cache()
-    launches_by_path = {SERVE_ARCH: serve_launches, XLSTM_ARCH: xlstm_launches}
 
     # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and

@@ -1,7 +1,8 @@
 """Burst-based application execution (paper Algorithm 1) with device state.
 
 The port of ``repro/core/runtime.py``. Volatile packets live on the
-runtime's device as tensors; NVM holds host copies (numpy). A load is a
+runtime's device as tensors; NVM holds host copies (numpy; a packet may be
+a nested dict, such as a serving request's decode state). A load is a
 host→device copy, a store a device→host copy, so a "power failure" really
 drops the device state, and recovery is "run again from the committed burst
 index": bursts are idempotent because tasks are pure functions of their
@@ -41,6 +42,7 @@ from .partition import Partition
 
 __all__ = [
     "PowerFailure",
+    "HostTensor",
     "MemoryNVM",
     "DirNVM",
     "BurstRuntime",
@@ -131,13 +133,58 @@ class DirNVM:
         os.replace(tmp, f)
 
 
-def _to_device(value: Any, device: torch.device) -> torch.Tensor:
-    """NVM host copy → volatile device tensor."""
+@dataclasses.dataclass(frozen=True, eq=False)
+class HostTensor:
+    """The NVM copy of a tensor inside a nested packet: its elements as
+    numpy (bfloat16 as int16 bits, which numpy lacks) and its torch type."""
+
+    data: np.ndarray
+    dtype: torch.dtype
+
+
+# Torch types numpy has no type for, carried as integer bits of their width.
+_BITS_OF = {torch.bfloat16: torch.int16}
+
+
+def _leaf_to_host(value: Any) -> Any:
+    if isinstance(value, torch.Tensor):
+        t = value.detach().to("cpu", copy=True)
+        bits = _BITS_OF.get(t.dtype)
+        return HostTensor((t.view(bits) if bits else t).numpy(), t.dtype)
+    if isinstance(value, dict):
+        return {k: _leaf_to_host(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_leaf_to_host(v) for v in value)
+    return value  # numpy arrays and scalars pass through
+
+
+def _leaf_to_device(value: Any, device: torch.device) -> Any:
+    if isinstance(value, HostTensor):
+        t = torch.from_numpy(value.data).to(device, copy=True)
+        return t.view(value.dtype) if value.dtype in _BITS_OF else t
+    if isinstance(value, dict):
+        return {k: _leaf_to_device(v, device) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(_leaf_to_device(v, device) for v in value)
+    return value
+
+
+def _to_device(value: Any, device: torch.device) -> Any:
+    """NVM host copy → volatile device state. A packet that is one array
+    becomes one tensor; in a packet that is a dict (nesting dicts, lists
+    and tuples) each tensor's copy goes back onto ``device`` as a tensor of
+    its type, and numpy arrays and scalars stay on the host."""
+    if isinstance(value, dict):
+        return _leaf_to_device(value, device)
     return torch.from_numpy(np.array(value)).to(device)
 
 
-def _to_host(value: Any) -> np.ndarray:
-    """Volatile device tensor → NVM host copy."""
+def _to_host(value: Any) -> Any:
+    """Volatile device state → NVM host copy (picklable, so both NVMs hold
+    it). A packet that is one array or tensor becomes one numpy array; a
+    dict keeps its nesting, each tensor in it a :class:`HostTensor`."""
+    if isinstance(value, dict):
+        return _leaf_to_host(value)
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.array(value)

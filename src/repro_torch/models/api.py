@@ -95,8 +95,11 @@ def prefill(cfg, params, batch: Dict[str, torch.Tensor], max_seq: int,
         return transformer.lm_prefill(cfg, params, batch["tokens"], max_seq, kernels)
 
 
-def decode_step(cfg, params, cache, token, pos: int, kernels: Kernels = KERNELS):
-    """token [B, 1] at ``pos`` → (logits [B, 1, V], cache updated in place)."""
+def decode_step(cfg, params, cache, token, pos, kernels: Kernels = KERNELS):
+    """token [B, 1] at ``pos`` (an int, or a 0-d int64 tensor on the token's
+    device) → (logits [B, 1, V], cache updated in place). No shape depends
+    on ``pos`` and nothing reads it on the host, so a CUDA graph can replay
+    the step."""
     module = _module(cfg)
     with torch.no_grad():
         if module is recurrent:

@@ -2,7 +2,9 @@
 
 Prefill attention goes through the flash attention kernel; single-token
 decode attention against the KV cache is plain tensor code, as in
-``repro`` (einsum + masked softmax outside any kernel).
+``repro`` (einsum + masked softmax outside any kernel). Decode has static
+shapes: it attends over the whole cache under a position mask and takes
+the position as a device tensor, so a CUDA graph can replay a step.
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ from typing import Mapping, Tuple
 import torch
 from torch import nn
 
-from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, Kernels, apply_rope,
-                     dense_init, frozen, ones_init, rmsnorm)
+from .common import (COMPUTE_DTYPE, KERNELS, NEG_INF, PARAM_DTYPE, Kernels, apply_rope,
+                     dense_init, frozen, ones_init, position, rmsnorm)
 
 __all__ = ["Attention", "init_attention"]
 
@@ -65,23 +67,28 @@ class Attention(nn.Module):
         o = kernels.attention(q, k, v, True)
         return o.flatten(-2) @ self.wo, (k, v)
 
-    def decode(self, x, cache_k, cache_v, pos: int, kernels: Kernels = KERNELS):
-        """One token x [B, 1, d] at position ``pos`` against the cache
-        [B, S_max, KV, hd]. Writes this token's k and v into the cache in
-        place (``repro`` makes a new cache by a one-hot update, which gives
-        the same values) and attends over positions 0..pos. Scores, softmax
-        and the weighted sum accumulate in float32, the weights rounded to
-        bf16 first, as ``repro`` does."""
+    def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
+        """One token x [B, 1, d] at position ``pos`` (an int or a 0-d int64
+        tensor on x's device) against the cache [B, S_max, KV, hd]. Writes
+        this token's k and v into the cache in place at ``pos`` (``repro``
+        makes a new cache by a one-hot update, which gives the same values)
+        and attends over the whole cache with the positions after ``pos``
+        masked to ``NEG_INF``, as ``repro`` does: no shape and no host read
+        depends on ``pos``. Scores, softmax and the weighted sum accumulate
+        in float32, the weights rounded to bf16 first, as ``repro`` does."""
         cfg = self.cfg
-        positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
-        q, k_new, v_new = self.project_qkv(x, positions, kernels)
-        cache_k[:, pos] = k_new[:, 0]
-        cache_v[:, pos] = v_new[:, 0]
-        k = cache_k[:, :pos + 1].to(torch.float32)
-        v = cache_v[:, :pos + 1].to(torch.float32)
-        b, _, kv, hd = k.shape
+        pos = position(pos, x.device)
+        q, k_new, v_new = self.project_qkv(x, pos.view(1, 1), kernels)
+        index = pos.view(1)
+        cache_k.index_copy_(1, index, k_new)
+        cache_v.index_copy_(1, index, v_new)
+        k = cache_k.to(torch.float32)
+        v = cache_v.to(torch.float32)
+        b, s_max, kv, hd = k.shape
         qg = q.reshape(b, 1, kv, cfg.n_heads // kv, hd).to(torch.float32)
         s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * (hd ** -0.5)
+        visible = torch.arange(s_max, device=x.device) <= pos
+        s = s.masked_fill(~visible, NEG_INF)
         w = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE).to(torch.float32)
         o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
         o = o.reshape(b, 1, cfg.n_heads * hd).to(COMPUTE_DTYPE)

@@ -26,10 +26,11 @@ from ..kernels.rmsnorm.ref import rmsnorm_plain
 
 COMPUTE_DTYPE = torch.bfloat16
 PARAM_DTYPE = torch.float32
+NEG_INF = -1e30  # the masked scores' fill, as repro/models/attention.py has it
 
 __all__ = [
-    "COMPUTE_DTYPE", "PARAM_DTYPE", "Kernels", "KERNELS", "PLAIN", "dense_init",
-    "ones_init", "frozen", "rmsnorm", "apply_rope",
+    "COMPUTE_DTYPE", "PARAM_DTYPE", "NEG_INF", "Kernels", "KERNELS", "PLAIN", "dense_init",
+    "ones_init", "frozen", "rmsnorm", "apply_rope", "position",
 ]
 
 
@@ -103,3 +104,12 @@ def apply_rope(x, positions, theta: float = 10000.0) -> torch.Tensor:
     sin, cos = sin[..., None, :], cos[..., None, :]  # broadcast over heads
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def position(pos, device) -> torch.Tensor:
+    """A decode position as a 0-d int64 tensor on ``device``: a tensor
+    passes through (a CUDA graph's static input), a Python int is filled in
+    on the device (no host-to-device copy)."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int64)
+    return torch.full((), int(pos), dtype=torch.int64, device=device)

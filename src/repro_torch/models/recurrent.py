@@ -131,10 +131,11 @@ def xlstm_prefill(cfg, model: XLSTMLM, tokens, max_seq: int, kernels: Kernels = 
     return _head(cfg, model, x[:, -1:], kernels), cache
 
 
-def xlstm_decode_step(cfg, model: XLSTMLM, cache, token, pos: int,
+def xlstm_decode_step(cfg, model: XLSTMLM, cache, token, pos,
                       kernels: Kernels = KERNELS):
-    """token [B, 1] → (logits [B, 1, V], cache updated in place). ``pos`` is
-    not used: the recurrent state carries the position."""
+    """token [B, 1] → (logits [B, 1, V], cache updated in place). ``pos`` (an
+    int or a 0-d tensor) is not used: the recurrent state carries the
+    position, and every shape is static."""
     del pos
     x = model.embed[token]
     for g, group in enumerate(model.groups):

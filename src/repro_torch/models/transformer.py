@@ -3,7 +3,9 @@
 ``repro`` stacks the layers on a leading axis and runs them under
 ``lax.scan``; here they are an ``nn.ModuleList`` run by a plain loop. The
 KV cache is one preallocated tensor per k and v, ``[L, B, S_max, KV, hd]``
-bf16, filled by prefill and updated in place by each decode step.
+bf16, filled by prefill and updated in place by each decode step. A decode
+step has static shapes (the position is a device tensor), so a CUDA graph
+can capture it.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from torch import nn
 
 from .attention import Attention, init_attention
 from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, Kernels, dense_init, frozen,
-                     ones_init, rmsnorm)
+                     ones_init, position, rmsnorm)
 from .mlp import SwiGLU, init_swiglu
 
 __all__ = ["DenseLM", "init_lm", "lm_forward", "lm_prefill", "lm_decode_step",
@@ -49,7 +51,7 @@ class DecoderLayer(nn.Module):
         x = x + self.mlp(rmsnorm(x, self.ln2, eps, kernels))
         return x, kv
 
-    def decode(self, x, cache_k, cache_v, pos: int, kernels: Kernels = KERNELS):
+    def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
         eps = self.cfg.norm_eps
         x = x + self.attn.decode(rmsnorm(x, self.ln1, eps, kernels), cache_k, cache_v,
                                  pos, kernels)
@@ -135,9 +137,11 @@ def lm_prefill(cfg, model: DenseLM, tokens, max_seq: int, kernels: Kernels = KER
     return _head(cfg, model, x[:, -1:], kernels), cache
 
 
-def lm_decode_step(cfg, model: DenseLM, cache, token, pos: int, kernels: Kernels = KERNELS):
-    """token [B, 1] at position ``pos`` → (logits [B, 1, V], cache), the
-    cache updated in place."""
+def lm_decode_step(cfg, model: DenseLM, cache, token, pos, kernels: Kernels = KERNELS):
+    """token [B, 1] at position ``pos`` (an int or a 0-d int64 tensor on the
+    token's device) → (logits [B, 1, V], cache), the cache updated in
+    place."""
+    pos = position(pos, token.device)
     x = model.embed[token]
     for i, layer in enumerate(model.layers):
         x = layer.decode(x, cache["k"][i], cache["v"][i], pos, kernels)
