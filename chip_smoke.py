@@ -54,7 +54,17 @@ version on the card, and drives the port's paths:
    copy times;
 7. the traffic harness over qwen3-4b's planned executor at full width
    (3 arrivals of b1 × p128 × g8 against a harvest pool that defers one),
-   tokens equal to unplanned serving, requests/s and latency percentiles.
+   tokens equal to unplanned serving, requests/s and latency percentiles;
+8. the calibration loop on that run's energy ledger: a measured cost table,
+   a replan on the sweep kernel byte-identical to the time table, a probe
+   of every cell against the measured profile, a drifted profile refused
+   and one inside the tolerance passed, a noisy profile priced at
+   confidence 0.9 through the façade bitwise equal to the numpy backend,
+   and the serve module's calibration probe;
+9. the dense sweep engine (``scan``) on the card: the three tables rebuilt
+   in one batched pass each, byte-equal to the kernel's builds, both timed;
+   the dense export's bytes, and ``auto`` leaving the full head count
+   (about 1.07 GB dense) on the kernel.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -615,7 +625,8 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
     t0 = time.perf_counter()
     for b, p, g in requests:
         report = {}
-        seqs = serve(cfg.name, b, p, g, seed=0, device=dev, params=params, report=report)
+        seqs = serve(cfg.name, b, p, g, smoke=False, seed=0, device=dev, params=params,
+                     report=report)
         served.append({"batch": b, "prompt": p, "gen": g, **report,
                        "tokens_ok": bool(seqs.shape == (b, g) and seqs.min() >= 0
                                          and seqs.max() < cfg.vocab)})
@@ -1637,10 +1648,10 @@ def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     budget = table.e_startup + per_cycle * plan.e_total
     S.PlannedExecutor(cfg.name, planner, device=dev, params={0: params}).warmup(
         [(b, p, g, 0)], cycle_budget=budget)
-    S.serve(cfg.name, b, p, g, device=dev, params=params)   # warms the unplanned key
+    S.serve(cfg.name, b, p, g, smoke=False, device=dev, params=params)  # warms the unplanned key
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = S.serve(cfg.name, b, p, g, device=dev, params=params)
+    want = S.serve(cfg.name, b, p, g, smoke=False, device=dev, params=params)
     unplanned_s = time.perf_counter() - t0
 
     fired = []
@@ -1656,7 +1667,7 @@ def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     sweeps0, trace0, commit0 = sweep_columns_cuda.launches, dict(S.TRACE_COUNT), dict(COMMIT_STATS)
     planner.reset_stats()
     rep = {}
-    got = S.serve(cfg.name, b, p, g, device=dev, params=params, plan_table=planner,
+    got = S.serve(cfg.name, b, p, g, smoke=False, device=dev, params=params, plan_table=planner,
                   energy_budget=budget, nvm=MemoryNVM(), crash_hook=crash, report=rep)
     launches = {name: fn.launches for name, fn in counters.items()}
     cycles = request_cycles(g, plan.e_total, budget, e_startup=table.e_startup)
@@ -1738,7 +1749,7 @@ def traffic_path(cfg, params, dev, table):
                              keep_tokens=True)
     reqs = deterministic_arrivals(TRAFFIC_ARRIVALS, 0.0, (b, p, g))
     harness.warmup(reqs)
-    want = S.serve(cfg.name, b, p, g, device=dev, params=params).numpy()
+    want = S.serve(cfg.name, b, p, g, smoke=False, device=dev, params=params).numpy()
     counters = serving_launches()
     for fn in counters.values():
         fn.launches = 0
@@ -1766,7 +1777,195 @@ def traffic_path(cfg, params, dev, table):
           and launches == want_launches)
     if not ok:
         raise AssertionError("traffic check failed")
+    return launches, report
+
+
+CALIBRATION_DRIFT_TOL = 0.05   # the serve and traffic CLIs' default
+CALIBRATION_NOISE = 0.01       # relative jitter of the noisy profile's restore rows
+CALIBRATION_CONFIDENCE = 0.9
+
+
+def calibration_loop(cfg, built, ledger, dev) -> int:
+    """The paper's loop closed on the card: the traffic run's ledger → a
+    measured cost table; a replan on the sweep kernel through the traffic
+    module's ``replan`` (byte-identical to the plan_table phase's time
+    table); a probe of every cell against the measured profile (passes);
+    the restore rows scaled past the drift tolerance (refused) and inside
+    it (passes); a noisy profile solved at ``confidence=0.9`` through the
+    façade on the kernel, bitwise equal to the numpy backend under the same
+    priced model, then probed by the serve module's ``calibration_probe``.
+    Returns the sweep launches of the phase."""
+    from repro_torch.api import PartitionSpec, solve
+    from repro_torch.core.calibration import MeasuredCostTable
+    from repro_torch.core.plan_table import StaleTableError, probe_plan_table
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import serve as S
+    from repro_torch.launch.planner import lower_buckets
+    from repro_torch.launch.traffic import replan
+
+    tol = CALIBRATION_DRIFT_TOL
+    t = next(t for t in built if t["arch"] == cfg.name and t["kind"] == "time")
+    table = t["table"]
+    sweep_columns_cuda.launches = 0
+    t0 = time.perf_counter()
+    measured = MeasuredCostTable.from_ledger(ledger, kind="time")
+    rows = ledger.sorted_rows()
+
+    def profile(scale_restore=1.0, noise=0.0):
+        rng = np.random.default_rng(0)
+        out = MeasuredCostTable(measured.base, "time")
+        for r in rows:
+            e = r["energy"]
+            if r["category"] == "restore":
+                e = e * scale_restore * (1.0 + noise * rng.standard_normal())
+            elif r["category"] == "commit" and noise:
+                e = e * (1.0 + 5 * noise * rng.standard_normal())
+            out.add(r["category"], e)
+        return out
+
+    l0 = sweep_columns_cuda.launches
+    res = replan(table, cfg, measured, backend="cuda", drift_tol=tol, k=4)
+    replan_launches = sweep_columns_cuda.launches - l0
+    l0, t1 = sweep_columns_cuda.launches, time.perf_counter()
+    probed = probe_plan_table(table, cfg, k=None, backend="cuda", measured=measured,
+                              drift_tol=tol)
+    probe_s, probe_launches = time.perf_counter() - t1, sweep_columns_cuda.launches - l0
+
+    # a restore scale that moves the table's smallest cycle by twice the
+    # tolerance must be refused; one that moves it by half must pass
+    e_s, e_min = float(measured.base.e_startup), float(table.cycle_energy.min())
+    f_out = 1.0 + 2.0 * tol * e_min / ((1.0 - tol) * e_s)
+    f_in = 1.0 + 0.5 * tol * e_min / e_s
+    try:
+        probe_plan_table(table, cfg, k=None, backend="cuda", measured=profile(f_out),
+                         drift_tol=tol)
+        refused = None
+    except StaleTableError as exc:
+        refused = str(exc)[:160]
+    passed_in = probe_plan_table(table, cfg, k=None, backend="cuda",
+                                 measured=profile(f_in), drift_tol=tol)
+
+    noisy = profile(noise=CALIBRATION_NOISE)
+    graphs = lower_buckets(cfg, table.buckets(), "time")
+    spec = dict(graphs=tuple(graphs), cost=noisy, confidence=CALIBRATION_CONFIDENCE,
+                q_grid=tuple(table.q_values()))
+    l0, t1 = sweep_columns_cuda.launches, time.perf_counter()
+    got = solve(PartitionSpec(backend="cuda", **spec))
+    conf_s, conf_launches = time.perf_counter() - t1, sweep_columns_cuda.launches - l0
+    want = solve(PartitionSpec(backend="numpy", **spec))
+    conf_equal = got.cost == want.cost and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(got.sweeps, want.sweeps)
+        for f in ("dp", "parent", "e_total", "feasible", "starts"))
+    l0, t1 = sweep_columns_cuda.launches, time.perf_counter()
+    served_probe = S.calibration_probe(table, cfg.name, noisy, smoke=False, device=dev,
+                                       drift_tol=tol, k=None)
+    serve_probe_s = time.perf_counter() - t1
+    serve_probe_launches = sweep_columns_cuda.launches - l0
+    launches = sweep_columns_cuda.launches
+    restore = noisy.stats["restore"]
+    row = {"phase": "calibration_loop", "arch": cfg.name, "table": table.summary(),
+           "ledger_samples": measured.n_samples,
+           "fingerprint": measured.fingerprint()[:16],
+           "restore_mean": measured.stats["restore"].mean,
+           "restore_std": measured.stats["restore"].std,
+           "cost_model_is_base": measured.cost_model() is measured.base,
+           "replan_identical": res.identical, "replan_probed": res.probed,
+           "replan_stale": res.stale, "replan_build_s": res.build_s,
+           "replan_probe_s": res.probe_s, "replan_launches": replan_launches,
+           "probe_cells": probed, "probe_s": probe_s, "probe_launches": probe_launches,
+           "drift_tol": tol, "smallest_cycle": e_min, "e_startup": e_s,
+           "restore_factor_refused": f_out, "refused": refused,
+           "restore_factor_passed": f_in, "passed_cells": passed_in,
+           "confidence": CALIBRATION_CONFIDENCE,
+           "noisy_restore_mean": restore.mean, "noisy_restore_std": restore.std,
+           "priced_e_startup": got.cost.e_startup,
+           "priced_transfer_scale": noisy.transfer_scale(CALIBRATION_CONFIDENCE),
+           "confidence_bitwise_equal_numpy": conf_equal, "confidence_solve_s": conf_s,
+           "confidence_launches": conf_launches, "serve_probe_cells": served_probe,
+           "serve_probe_s": serve_probe_s, "serve_probe_launches": serve_probe_launches,
+           "seconds": time.perf_counter() - t0, "sweep_launches": launches}
+    emit(row)
+    ok = (row["cost_model_is_base"] and res.identical and res.stale is None
+          and res.probed == 4 and probed == table.feasible.size and refused is not None
+          and "drifted" in refused and passed_in == probed and conf_equal
+          and got.cost.e_startup > restore.mean and served_probe == probed
+          and launches > 0)
+    if not ok:
+        raise AssertionError("calibration loop check failed")
     return launches
+
+
+def dense_engine(built, g_thermal, cm_thermal) -> dict:
+    """The dense sweep (``scan``) on the card: each plan_table-phase table
+    rebuilt on it in one batched pass, byte-equal to the kernel's build;
+    both engines timed side by side (least of two builds each, from the
+    same lowered graphs); the dense export's bytes per bucket and of the
+    full THERMAL head count, which ``auto`` must leave on the kernel; and
+    the device kernels of one dense solve (every float64 op its own
+    elementwise launch)."""
+    from repro_torch.api import PartitionSpec, solve
+    from repro_torch.core.engine import resolve_auto_backend
+    from repro_torch.core.graph import dense_export_nbytes
+    from repro_torch.core.plan_table import PlanTable, build_plan_table
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch.planner import lower_buckets
+
+    def nbytes(g):
+        return dense_export_nbytes(g.n_tasks, max((len(t.reads) for t in g.tasks), default=0),
+                                   max((len(t.writes) for t in g.tasks), default=0))
+
+    rows = []
+    for t in built:
+        cfg, cm, qs, ref = t["cfg"], t["cost"], t["qs"], t["table"]
+        graphs = lower_buckets(cfg, ref.buckets(), t["kind"])
+        secs = {"scan": [], "cuda": []}
+        tables = {}
+        for backend in ("scan", "cuda", "scan", "cuda"):
+            l0 = sweep_columns_cuda.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tables[backend] = build_plan_table(cfg, ref.buckets(), qs, kind=t["kind"],
+                                               cost=cm, graphs=graphs, backend=backend)
+            torch.cuda.synchronize()
+            secs[backend].append(time.perf_counter() - t0)
+            if backend == "scan" and sweep_columns_cuda.launches != l0:
+                raise AssertionError("the scan build launched the sweep kernel")
+        scan = tables["scan"]
+        equal = (scan.content_digest() == ref.content_digest()
+                 and all(np.array_equal(getattr(scan, n), getattr(ref, n))
+                         for n in PlanTable._PAYLOAD))
+        rows.append({"arch": t["arch"], "kind": t["kind"], "buckets": len(graphs),
+                     "q_points": len(qs), "tasks": [g.n_tasks for g in graphs],
+                     "scan_build_s": secs["scan"], "cuda_build_s": secs["cuda"],
+                     "scan_over_cuda": min(secs["scan"]) / min(secs["cuda"]),
+                     "byte_equal_kernel_build": equal,
+                     "dense_export_bytes": [nbytes(g) for g in graphs],
+                     "csr_export_bytes": [g.to_csr_arrays().nbytes for g in graphs]})
+        if not equal:
+            raise AssertionError(f"dense-engine table != kernel build: {rows[-1]}")
+    g0 = lower_buckets(built[0]["cfg"], built[0]["table"].buckets()[:1], built[0]["kind"])[0]
+    spec = PartitionSpec(graph=g0, cost=built[0]["cost"], q_grid=tuple(built[0]["qs"]),
+                         backend="scan")
+    solve(spec)
+    kernels = profile_device(lambda: solve(spec))
+    launched = {k[:96]: c for k, (us, c) in kernels.items() if us > 0}
+    fused = sorted(k for k in launched if any(w in k.lower() for w in ("addcmul", "fma", "lerp")))
+    thermal_auto = resolve_auto_backend(g_thermal)
+    row = {"phase": "dense_engine", "tables": rows,
+           "thermal_dense_export_bytes": nbytes(g_thermal),
+           "thermal_csr_export_bytes": g_thermal.to_csr_arrays().nbytes,
+           "thermal_auto_backend": thermal_auto,
+           "thermal_auto_backend_via_facade": solve(PartitionSpec(
+               graph=g_thermal, cost=cm_thermal, objective="minimax")).backend,
+           "one_solve": {"tasks": g0.n_tasks, "device_launches": sum(launched.values()),
+                         "launches_per_column": sum(launched.values()) / g0.n_tasks,
+                         "kernels": sorted(launched.items(), key=lambda kv: -kv[1])[:8],
+                         "fused_multiply_add_kernels": fused}}
+    emit(row)
+    if thermal_auto != "cuda" or row["thermal_auto_backend_via_facade"] != "cuda" or fused:
+        raise AssertionError(f"dense engine check failed: {row}")
+    return row
 
 
 def main() -> int:
@@ -2084,8 +2283,12 @@ def main() -> int:
     launches_by_path = {SERVE_ARCH: serve_launches}
     launches_by_path[f"{SERVE_ARCH} planned"] = serve_planned(
         cfg, params, dev, time_tables[SERVE_ARCH], *PLANNED[SERVE_ARCH])
-    launches_by_path[f"{SERVE_ARCH} traffic"] = traffic_path(
+    launches_by_path[f"{SERVE_ARCH} traffic"], traffic = traffic_path(
         cfg, params, dev, time_tables[SERVE_ARCH])
+
+    # -- the calibration loop on the traffic run's ledger, and the dense engine
+    calibration_launches = calibration_loop(cfg, built, traffic.ledger, dev)
+    dense_engine(built, full["thermal"][0], cm)
     del params
     torch.cuda.empty_cache()
 
@@ -2143,9 +2346,10 @@ def main() -> int:
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
-        "launches": launches["partition_sweep"] + plan_launches,
+        "launches": launches["partition_sweep"] + plan_launches + calibration_launches,
         "launches_by_path": {"headcount": launches["partition_sweep"],
-                             "plan_table": plan_launches},
+                             "plan_table": plan_launches,
+                             "calibration": calibration_launches},
         "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],

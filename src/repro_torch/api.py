@@ -13,13 +13,30 @@ model-zoo lowerings, through one call::
     solve(PartitionSpec(graph=g, cost=cm, objective="exact_k",
                         n_bursts=4, k_objective="max")).partition()
 
-``backend="auto"`` (the default) runs the CSR sweep kernel on the card and
-raises without one; ``backend="torch"`` runs its plain version on the CPU,
-``backend="numpy"`` the oracle DP. All three are bitwise equal.
+``backend="auto"`` (the default) runs the CSR sweep kernel on the card for
+a graph or its CSR export, and the dense sweep (``"scan"``) for a dense
+export; it raises without a card. ``backend="torch"`` runs the kernel's
+plain version on the CPU, ``"scan-cpu"`` the dense sweep there,
+``backend="numpy"`` the oracle DP. All are bitwise equal (the dense sweep
+to ~ulp on graphs with more than eight reads in one task).
+
+A measured calibration prices the solve instead of the analytical model::
+
+    table = MeasuredCostTable.from_ledger(report.ledger, kind="time")
+    solve(PartitionSpec(graph=g, cost=table, confidence=0.9, q_max=q))
+    with use_measured(table):              # the default for config specs
+        solve(PartitionSpec(config="qwen3-4b", objective="minimax"))
 """
 
 from __future__ import annotations
 
+from .core.calibration import (
+    CalibrationError,
+    MeasuredCostTable,
+    clear_measured_defaults,
+    install_measured_default,
+    use_measured,
+)
 from .core.engine import (
     OBJECTIVES,
     BackendInfo,
@@ -41,20 +58,25 @@ from .core.partition import Infeasible
 __all__ = [
     "OBJECTIVES",
     "BackendInfo",
+    "CalibrationError",
     "Engine",
     "EngineError",
     "ExportMismatch",
     "Infeasible",
+    "MeasuredCostTable",
     "PartitionSpec",
     "Solution",
     "SpecError",
     "UnsupportedObjective",
     "backend_info",
     "backend_names",
+    "clear_measured_defaults",
     "default_engine",
     "export_kind",
+    "install_measured_default",
     "register_backend",
     "solve",
+    "use_measured",
 ]
 
 

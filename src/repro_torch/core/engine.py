@@ -4,27 +4,35 @@ The port's copy of ``repro/core/engine.py``. Callers build one immutable
 :class:`PartitionSpec` —
 
 * **what** to partition: a :class:`~repro_torch.core.graph.TaskGraph` (or
-  its CSR export), a batch of graphs, or a model-zoo config plus
+  its dense or CSR export), a batch of graphs, or a model-zoo config plus
   (batch, seq) shapes to lower;
 * **what to optimize**: ``objective="sum"`` (the paper's E_total DP over a
   Q_max grid), ``"minimax"`` (§4.4 storage minimization, Q_min) or
   ``"exact_k"`` (the fixed-burst-count DP);
-* **where** to solve it: ``backend="numpy" | "torch" | "cuda" | "auto"``
+* **where** to solve it: ``backend="numpy" | "torch" | "cuda" | "scan" |
+  "scan-cpu" | "auto"``;
+* **at what price**: ``cost=`` a :class:`~.cost.CostModel`, or a
+  :class:`~.calibration.MeasuredCostTable` priced at ``confidence=``
 
 — and :meth:`Engine.solve` resolves it through a backend *registry*.
-``numpy`` is the oracle DP of :mod:`.partition`; ``torch`` runs the sweep's
-plain PyTorch version on the CPU (tests, ``--device cpu``); ``cuda`` runs
-the CSR sweep kernel on the card in the matching mode. ``auto`` resolves to
-``cuda`` for every graph: the CSR kernel is the only engine the port has,
-and ``auto`` never drops to the CPU — without a card it raises, as
-``device="cuda"`` does. Mismatches raise typed errors:
+``numpy`` is the oracle DP of :mod:`.partition`; ``cuda`` runs the CSR
+sweep kernel on the card in the matching mode, ``torch`` its plain PyTorch
+version on the CPU (tests, ``--device cpu``); ``scan`` runs the dense sweep
+of :mod:`.partition_torch` on the card, one batched pass over a batch of
+graphs, ``scan-cpu`` the same code on the CPU. ``auto`` never drops to the
+CPU — without a card it raises, as ``device="cuda"`` does — and routes per
+graph by layout: a ``GraphArrays`` export to ``scan``, a ``GraphCSRArrays``
+export to ``cuda``, and a ``TaskGraph`` of any size to ``cuda`` (the
+reference sends a graph under 32 MB of dense export to its ``lax.scan``
+engine, one compiled executable on a TPU; the port's dense sweep is a host
+loop over columns, so the kernel keeps every graph). A mixed batch is
+solved group by group. Mismatches raise typed errors:
 :class:`ExportMismatch` for a layout a backend cannot consume,
 :class:`UnsupportedObjective` for an objective it does not implement.
 
-The reference's ``sharding=``, ``placement=``, ``confidence=`` (and a
-measured cost table as ``cost=``) and ``interpret=`` have no counterpart in
-the port yet; a spec that sets one raises :class:`SpecError` naming the
-ROADMAP item that brings it.
+The reference's ``sharding=``, ``placement=`` and ``interpret=`` have no
+counterpart in the port yet; a spec that sets one raises :class:`SpecError`
+naming the ROADMAP item that brings it.
 
 Most callers go through :mod:`repro_torch.api`, which re-exports this
 module's public names and the :func:`~repro_torch.api.solve` convenience.
@@ -39,8 +47,9 @@ import numpy as np
 
 from ..obs.trace import PID_SOLVER, TRACER
 from . import partition_torch as pt
+from .calibration import MeasuredCostTable, measured_default
 from .cost import CostModel
-from .graph import GraphCSRArrays, TaskGraph
+from .graph import GraphArrays, GraphCSRArrays, TaskGraph
 from .partition import Infeasible, Partition
 
 __all__ = [
@@ -53,6 +62,7 @@ __all__ = [
     "backend_names",
     "backend_info",
     "export_kind",
+    "resolve_auto_backend",
     "PartitionSpec",
     "Solution",
     "Engine",
@@ -60,7 +70,7 @@ __all__ = [
     "OBJECTIVES",
 ]
 
-AnyExport = Union[TaskGraph, GraphCSRArrays]
+AnyExport = Union[TaskGraph, GraphArrays, GraphCSRArrays]
 
 OBJECTIVES = ("sum", "minimax", "exact_k")
 
@@ -101,14 +111,16 @@ class BackendInfo:
     """Registry entry: a backend class plus its capability flags.
 
     ``objectives`` is the set of :data:`OBJECTIVES` the backend implements;
-    ``supports_csr`` declares that it consumes :class:`GraphCSRArrays`
-    exports (every backend accepts a :class:`TaskGraph`); ``auto_eligible``
-    marks the backends ``backend="auto"`` may pick."""
+    ``supports_csr`` / ``supports_dense`` declare that it consumes
+    :class:`GraphCSRArrays` / :class:`GraphArrays` exports (every backend
+    accepts a :class:`TaskGraph`); ``auto_eligible`` marks the backends
+    ``backend="auto"`` may pick."""
 
     name: str
     factory: Any
     objectives: frozenset
     supports_csr: bool = False
+    supports_dense: bool = True
     auto_eligible: bool = True
 
 
@@ -120,6 +132,7 @@ def register_backend(
     *,
     objectives: Sequence[str] = ("sum",),
     supports_csr: bool = False,
+    supports_dense: bool = True,
     auto_eligible: bool = True,
     registry: Optional[Dict[str, BackendInfo]] = None,
 ):
@@ -135,6 +148,7 @@ def register_backend(
             factory=cls,
             objectives=frozenset(objectives),
             supports_csr=supports_csr,
+            supports_dense=supports_dense,
             auto_eligible=auto_eligible,
         )
         return cls
@@ -159,15 +173,63 @@ def backend_info(
 
 
 def export_kind(graph: AnyExport) -> str:
-    """Classify a solver input: ``"graph"`` / ``"csr"``."""
+    """Classify a solver input: ``"graph"`` / ``"dense"`` / ``"csr"``."""
     if isinstance(graph, TaskGraph):
         return "graph"
+    if isinstance(graph, GraphArrays):
+        return "dense"
     if isinstance(graph, GraphCSRArrays):
         return "csr"
     raise ExportMismatch(
         f"cannot solve a {type(graph).__name__}: expected a TaskGraph or a "
-        f"GraphCSRArrays export"
+        f"GraphArrays / GraphCSRArrays export"
     )
+
+
+def _check_export(info: BackendInfo, graph: AnyExport,
+                  registry: Dict[str, BackendInfo]) -> None:
+    """The capability check guarding every dispatch: a TaskGraph goes to any
+    backend, an export only to one that consumes its layout."""
+    kind = export_kind(graph)
+    for layout, flag, cls in (("dense", "supports_dense", "GraphArrays"),
+                              ("csr", "supports_csr", "GraphCSRArrays")):
+        if kind == layout and not getattr(info, flag):
+            raise ExportMismatch(
+                f"backend {info.name!r} does not consume {cls} exports; pass "
+                f"the TaskGraph or pick a backend with {flag} (registered: "
+                f"{[b.name for b in registry.values() if getattr(b, flag)]})"
+            )
+
+
+def resolve_auto_backend(
+    graph: AnyExport,
+    objective: str = "sum",
+    registry: Optional[Dict[str, BackendInfo]] = None,
+) -> str:
+    """``backend="auto"`` for one graph: among the auto-eligible backends
+    implementing ``objective``, a CSR export takes a ``supports_csr`` one, a
+    dense export a ``supports_dense`` one, and a TaskGraph a CSR one first
+    (the sweep kernel, whatever the graph's size; see the module
+    docstring)."""
+    reg = _REGISTRY if registry is None else registry
+    cands = [b for b in reg.values() if b.auto_eligible and objective in b.objectives]
+    if not cands:
+        raise UnsupportedObjective(
+            f"no registered auto-eligible backend implements objective "
+            f"{objective!r} (registered: {sorted(reg)})"
+        )
+    dense_c = [b for b in cands if b.supports_dense]
+    csr_c = [b for b in cands if b.supports_csr]
+    kind = export_kind(graph)
+    pool = {"csr": csr_c, "dense": dense_c}.get(kind, csr_c or dense_c)
+    if not pool:
+        raise ExportMismatch(
+            f"no backend implementing objective {objective!r} consumes a "
+            f"{kind!r} export ({sorted(b.name for b in cands)} take "
+            f"{'dense' if dense_c else 'csr'} or the TaskGraph itself); pass "
+            f"the TaskGraph or re-export in the matching layout"
+        )
+    return pool[0].name
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +251,6 @@ _UNSET = _Unset()
 _NOT_PORTED = {
     "sharding": "Q-grid sharding is ROADMAP item 9 (sharded DSE)",
     "placement": "swarm placement is ROADMAP item 8",
-    "confidence": "measured-cost confidence pricing is ROADMAP item 6 (calibration)",
     "interpret": "interpret= is the Pallas kernel's mode; the port's kernels "
                  "are CUDA (pick backend='torch' for the plain version)",
 }
@@ -218,11 +279,15 @@ class PartitionSpec:
     combine: ``"sum"`` for E_total, ``"max"`` for the bottleneck).
 
     ``cost`` is required for explicit graphs; config-lowered specs default
-    it per ``kind`` as the plan-table builders do. ``backend`` names a
-    registered backend or ``"auto"``. ``sharding``, ``placement``,
-    ``confidence`` and ``interpret`` exist so that a spec written for the
-    reference fails loudly here: any value but ``None`` raises
-    :class:`SpecError`.
+    it per ``kind`` as the plan-table builders do (an installed measured
+    calibration first). ``cost`` also takes a
+    :class:`~.calibration.MeasuredCostTable`, priced at ``confidence`` (a
+    level in (0, 1)): every cut at measured mean + z·sigma;
+    ``confidence=None`` prices at the plain mean, which is the analytical
+    model itself when the measurements match it. ``backend`` names a
+    registered backend or ``"auto"``. ``sharding``, ``placement`` and
+    ``interpret`` exist so that a spec written for the reference fails
+    loudly here: any value but ``None`` raises :class:`SpecError`.
     """
 
     graph: Optional[AnyExport] = None
@@ -231,7 +296,7 @@ class PartitionSpec:
     shapes: Tuple[Tuple[int, int], ...] = ((1, 128),)
     kind: str = "time"
     smoke: bool = False
-    cost: Optional[CostModel] = None
+    cost: Optional[Union[CostModel, MeasuredCostTable]] = None
     q_grid: Optional[Tuple[Optional[float], ...]] = None
     q_max: Any = _UNSET
     objective: str = "sum"
@@ -303,11 +368,24 @@ class PartitionSpec:
             )
         if not isinstance(self.backend, str):
             raise SpecError(f"backend= must be a name, got {self.backend!r}")
-        if self.cost is not None and not isinstance(self.cost, CostModel):
+        if self.cost is not None and not isinstance(
+                self.cost, (CostModel, MeasuredCostTable)):
             raise SpecError(
-                f"cost= must be a CostModel, got {type(self.cost).__name__} "
-                f"(a measured cost table is ROADMAP item 6, calibration)"
+                f"cost= must be a CostModel or a MeasuredCostTable, got "
+                f"{type(self.cost).__name__}"
             )
+        if self.confidence is not None:
+            try:
+                c = float(self.confidence)
+            except (TypeError, ValueError):
+                raise SpecError(
+                    f"confidence= must be a float in (0, 1), got {self.confidence!r}"
+                ) from None
+            if not 0.0 < c < 1.0 or c != c:
+                raise SpecError(
+                    f"confidence= must lie strictly in (0, 1), got {self.confidence!r}"
+                )
+            object.__setattr__(self, "confidence", c)
 
     @property
     def batched(self) -> bool:
@@ -343,7 +421,7 @@ class Solution:
     """
 
     spec: PartitionSpec
-    backend: str
+    backend: str                 # the resolved name; "a+b" for a mixed auto batch
     graphs: Tuple[AnyExport, ...]
     cost: CostModel
     q_values: Tuple[Optional[float], ...]
@@ -448,6 +526,7 @@ class _SolveRequest:
     "numpy",
     objectives=OBJECTIVES,
     supports_csr=False,          # the oracle DP walks the TaskGraph itself
+    supports_dense=False,
     auto_eligible=False,
 )
 class NumpyBackend:
@@ -506,7 +585,7 @@ class _SweepBackend:
 
 
 @register_backend("torch", objectives=OBJECTIVES, supports_csr=True,
-                  auto_eligible=False)
+                  supports_dense=False, auto_eligible=False)
 class TorchBackend(_SweepBackend):
     """The sweep's plain PyTorch version on the CPU: bitwise equal to the
     kernel and to the numpy oracles (tests, ``--device cpu``)."""
@@ -515,13 +594,56 @@ class TorchBackend(_SweepBackend):
     device = "cpu"
 
 
-@register_backend("cuda", objectives=OBJECTIVES, supports_csr=True)
+@register_backend("cuda", objectives=OBJECTIVES, supports_csr=True,
+                  supports_dense=False)
 class CudaBackend(_SweepBackend):
     """The CSR sweep kernel (``kernels/partition_sweep/csrc``) on the card;
     raises without one."""
 
     name = "cuda"
     device = "cuda"
+
+
+class _DenseBackend:
+    """The dense sweep of :mod:`.partition_torch` on ``device``: a ``sum``
+    batch in one padded pass, minimax and exact-K per graph."""
+
+    device = "cpu"
+
+    def solve(self, req: _SolveRequest) -> dict:
+        dev = self.device
+        if req.objective == "sum":
+            return {"sweeps": tuple(pt.sweep_dense(req.graphs, req.cost, req.q_values,
+                                                   device=dev))}
+        if req.objective == "minimax":
+            return {"qmins": tuple(pt.q_min_dense(g, req.cost, device=dev)
+                                   for g in req.graphs)}
+        return {
+            "parts": tuple(
+                (pt.exact_k_partition_dense(g, req.cost, req.n_bursts, req.q_values[0],
+                                            objective=req.k_objective, device=dev),)
+                for g in req.graphs
+            )
+        }
+
+
+@register_backend("scan", objectives=OBJECTIVES, supports_dense=True)
+class ScanBackend(_DenseBackend):
+    """The dense sweep on the card (the reference's ``lax.scan`` engine);
+    raises without one."""
+
+    name = "scan"
+    device = "cuda"
+
+
+@register_backend("scan-cpu", objectives=OBJECTIVES, supports_dense=True,
+                  auto_eligible=False)
+class ScanCpuBackend(_DenseBackend):
+    """The dense sweep on the CPU (tests, ``--device cpu``): the same code
+    as ``scan``."""
+
+    name = "scan-cpu"
+    device = "cpu"
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +660,24 @@ class Engine:
     def __init__(self, registry: Optional[Dict[str, BackendInfo]] = None):
         self._registry = _REGISTRY if registry is None else registry
 
+    @staticmethod
+    def _price_cost(spec: PartitionSpec, cost) -> CostModel:
+        """The spec's priced CostModel: a :class:`MeasuredCostTable` at
+        ``spec.confidence`` (each cut at measured mean + z·sigma); a plain
+        CostModel as it is — with ``confidence=`` that is an error, since a
+        data-sheet model has no variance to price and the flag would do
+        nothing."""
+        if isinstance(cost, MeasuredCostTable):
+            return cost.cost_model(spec.confidence)
+        if spec.confidence is not None:
+            raise SpecError(
+                f"confidence= prices measured uncertainty and needs cost= to be "
+                f"a MeasuredCostTable (repro_torch.core.calibration); a plain "
+                f"CostModel ({getattr(cost, 'name', cost)!r}) has no variance "
+                f"to price"
+            )
+        return cost
+
     def _resolve_graphs(
         self, spec: PartitionSpec
     ) -> Tuple[Tuple[AnyExport, ...], CostModel]:
@@ -550,8 +690,12 @@ class Engine:
                 lower_config(cfg, batch=b, seq=s, kind=spec.kind)
                 for (b, s) in spec.shapes
             )
-            cost = spec.cost if spec.cost is not None else default_cost_model(spec.kind)
-            return graphs, cost
+            cost = spec.cost
+            if cost is None:
+                # an installed calibration is the default measured source, so
+                # confidence= works on config-lowered specs without the table
+                cost = measured_default(spec.kind) or default_cost_model(spec.kind)
+            return graphs, self._price_cost(spec, cost)
         if spec.cost is None:
             raise SpecError(
                 "cost= is required for explicit graph specs (config-lowered "
@@ -560,22 +704,21 @@ class Engine:
         graphs = (spec.graph,) if spec.graph is not None else spec.graphs
         for g in graphs:
             export_kind(g)  # typed error for non-graph inputs
-        return graphs, spec.cost
+        return graphs, self._price_cost(spec, spec.cost)
 
-    def resolve_backend(self, spec: PartitionSpec) -> BackendInfo:
-        """The named backend, or for ``"auto"`` the first auto-eligible
-        backend implementing the objective (``cuda`` in the default
-        registry, whatever the graph)."""
+    def resolve_backend(
+        self, spec: PartitionSpec, graphs: Sequence[AnyExport]
+    ) -> Tuple[str, List[str]]:
+        """(label, one backend name per graph): the named backend for every
+        graph, or for ``"auto"`` :func:`resolve_auto_backend` per graph.
+        ``label`` is the Solution's backend: one name, or ``"a+b"`` for a
+        mixed batch."""
         if spec.backend != "auto":
-            return backend_info(spec.backend, self._registry)
-        cands = [b for b in self._registry.values()
-                 if b.auto_eligible and spec.objective in b.objectives]
-        if not cands:
-            raise UnsupportedObjective(
-                f"no registered auto-eligible backend implements objective "
-                f"{spec.objective!r} (registered: {sorted(self._registry)})"
-            )
-        return cands[0]
+            info = backend_info(spec.backend, self._registry)
+            return info.name, [info.name] * len(graphs)
+        per_graph = [resolve_auto_backend(g, spec.objective, self._registry)
+                     for g in graphs]
+        return "+".join(sorted(set(per_graph))), per_graph
 
     def solve(self, spec: PartitionSpec) -> Solution:
         """Validate, resolve, capability-check, dispatch, wrap."""
@@ -585,15 +728,17 @@ class Engine:
                 f"{type(spec).__name__}"
             )
         graphs, cost = self._resolve_graphs(spec)
-        info = self.resolve_backend(spec)
-        if spec.objective not in info.objectives:
-            raise UnsupportedObjective(
-                f"backend {info.name!r} does not implement objective "
-                f"{spec.objective!r} (supported: {sorted(info.objectives)}); "
-                f"backends implementing it: "
-                f"{sorted(b.name for b in self._registry.values() if spec.objective in b.objectives)}"
-            )
-        for g in graphs:
+        label, per_graph = self.resolve_backend(spec, graphs)
+        for name in sorted(set(per_graph)):
+            info = backend_info(name, self._registry)
+            if spec.objective not in info.objectives:
+                raise UnsupportedObjective(
+                    f"backend {info.name!r} does not implement objective "
+                    f"{spec.objective!r} (supported: {sorted(info.objectives)}); "
+                    f"backends implementing it: "
+                    f"{sorted(b.name for b in self._registry.values() if spec.objective in b.objectives)}"
+                )
+        for g, name in zip(graphs, per_graph):
             if spec.objective == "exact_k" and not isinstance(g, TaskGraph):
                 # reconstructed bursts are priced on the graph
                 raise ExportMismatch(
@@ -601,39 +746,46 @@ class Engine:
                     "reconstructed bursts; pass the graph rather than a "
                     "pre-exported layout"
                 )
-            if export_kind(g) == "csr" and not info.supports_csr:
-                raise ExportMismatch(
-                    f"backend {info.name!r} does not consume GraphCSRArrays "
-                    f"exports; pass the TaskGraph or pick a backend with "
-                    f"supports_csr (registered: "
-                    f"{[b.name for b in self._registry.values() if b.supports_csr]})"
-                )
-        req = _SolveRequest(
-            graphs=graphs,
-            cost=cost,
-            q_values=spec.q_values,
-            objective=spec.objective,
-            n_bursts=spec.n_bursts,
-            k_objective=spec.k_objective,
-        )
+            _check_export(backend_info(name, self._registry), g, self._registry)
         with TRACER.span(
             "engine.solve",
             cat="engine",
             pid=PID_SOLVER,
             objective=spec.objective,
-            backend=info.name,
+            backend=label,
             graphs=len(graphs),
             q_points=len(spec.q_values),
         ):
-            payload = info.factory().solve(req)
+            payload = self._dispatch(spec, graphs, cost, per_graph)
         return Solution(
             spec=spec,
-            backend=info.name,
+            backend=label,
             graphs=graphs,
             cost=cost,
             q_values=spec.q_values,
             **payload,
         )
+
+    def _dispatch(self, spec, graphs, cost, per_graph) -> dict:
+        """One solve per backend group (one group unless ``auto`` mixed
+        layouts), the results put back in the graphs' order."""
+        out: Dict[str, list] = {}
+        for name in sorted(set(per_graph)):
+            idx = [k for k, n in enumerate(per_graph) if n == name]
+            req = _SolveRequest(
+                graphs=tuple(graphs[k] for k in idx),
+                cost=cost,
+                q_values=spec.q_values,
+                objective=spec.objective,
+                n_bursts=spec.n_bursts,
+                k_objective=spec.k_objective,
+            )
+            payload = backend_info(name, self._registry).factory().solve(req)
+            for key, vals in payload.items():
+                slots = out.setdefault(key, [None] * len(graphs))
+                for k, v in zip(idx, vals):
+                    slots[k] = v
+        return {key: tuple(vals) for key, vals in out.items()}
 
 
 _DEFAULT_ENGINE = Engine()

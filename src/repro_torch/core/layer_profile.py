@@ -297,6 +297,15 @@ def analytical_cost_model(kind: str) -> CostModel:
 
 def default_cost_model(kind: str) -> CostModel:
     """The standard cost model per activation-graph ``kind``, shared by the
-    façade's config-lowered specs and the plan-table builders. Without
-    calibration (ROADMAP item 6) it is the analytical model."""
+    façade's config-lowered specs and the plan-table builders. When a
+    measured calibration is installed for this kind
+    (:func:`repro_torch.core.calibration.install_measured_default`), its
+    mean-priced materialization takes precedence over the analytical model;
+    a clean calibration materializes the analytical model itself, so
+    fingerprints move only when the measurements did."""
+    from .calibration import measured_default
+
+    measured = measured_default(kind)
+    if measured is not None:
+        return measured.cost_model()
     return analytical_cost_model(kind)

@@ -869,6 +869,8 @@ def probe_plan_table(
     seed: int = 0,
     cost: Optional[CostModel] = None,
     backend: str = "auto",
+    measured=None,
+    drift_tol: float = 0.05,
 ) -> int:
     """Re-validate ``k`` random cells against the live engine (``k=None``
     probes every cell). Returns the number of probed cells.
@@ -878,7 +880,14 @@ def probe_plan_table(
     any probed cell's feasibility, e_total, bounds, or cycle energies differ
     by even one bit from a fresh solve — the load-time guard for tables that
     outlived an engine or cost-model change the version field can't see.
-    (Drift against a measured calibration is ROADMAP item 6.)
+
+    ``measured`` (a :class:`~.calibration.MeasuredCostTable`, e.g. built
+    from a traffic run's ledger) additionally reprices every probed feasible
+    cell's cycles under the measured mean model and rejects the table when
+    any cycle's measured draw is further than ``drift_tol`` (relative) from
+    the tabulated one — the staleness check against a refreshed profile. A
+    clean calibration materializes the tabulated model itself and always
+    passes.
     """
     from ..api import PartitionSpec, solve  # lazy: the façade imports this package
     from ..configs import resolve_config
@@ -892,6 +901,17 @@ def probe_plan_table(
             f"live engine config (cfg={cfg.name!r}, kind={table.kind!r}, "
             f"cost={cm.name!r} → {fp[:16]}…)"
         )
+    m_cm = None
+    if measured is not None:
+        m_kind = getattr(measured, "kind", table.kind)
+        if m_kind != table.kind:
+            raise StaleTableError(
+                f"calibration profile is kind={m_kind!r} but the table is "
+                f"kind={table.kind!r}"
+            )
+        if drift_tol < 0:
+            raise PlanTableError(f"drift_tol must be >= 0, got {drift_tol}")
+        m_cm = measured.cost_model()
     nb, nq = table.n_buckets, table.n_q
     total = nb * nq
     if k is None or k >= total:
@@ -943,4 +963,16 @@ def probe_plan_table(
                 raise StaleTableError(
                     f"stale {where}: cycle energies differ from live pricing"
                 )
+            if m_cm is not None:
+                for ci, ((i, jj), tab_e) in enumerate(zip(bounds, live_energy)):
+                    meas_e = burst_cost(graph, m_cm, i, jj)
+                    err = abs(meas_e - tab_e)
+                    scale = max(abs(meas_e), abs(tab_e))
+                    if err > drift_tol * scale + BUDGET_ABS:
+                        raise StaleTableError(
+                            f"stale {where}: cycle {ci} measured draw "
+                            f"{meas_e!r} drifted {err / scale:.1%} from the "
+                            f"tabulated {tab_e!r} (tolerance "
+                            f"{drift_tol:.1%}) — recalibrate and rebuild"
+                        )
     return int(len(cells))

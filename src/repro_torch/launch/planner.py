@@ -353,7 +353,9 @@ _BACKEND_OF_DEVICE = {"cuda": "cuda", "cpu": "torch"}
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b")
-    ap.add_argument("--buckets", default="2x24,2x48",
+    # repro's default is 2x24,2x48; 4x48 is added so that the default table
+    # covers the serve CLI's default request (batch 4, 32 + 16 tokens)
+    ap.add_argument("--buckets", default="2x24,2x48,4x48",
                     help="comma-separated BATCHxSEQ buckets, e.g. 2x24,4x48")
     ap.add_argument("--q-points", type=int, default=16,
                     help="geometric Q grid size (an unbounded point is added)")

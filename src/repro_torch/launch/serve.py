@@ -3,16 +3,19 @@ for xLSTM), then greedy decode steps extend it; optionally scheduled from a
 precomputed plan table.
 
     python -m repro_torch.launch.serve [--arch qwen3-4b|xlstm-1.3b] [--batch 4]
-        [--prompt-len 32] [--gen 16] [--smoke] [--device cuda]
-        [--plan-table plan.npz [--energy-budget E]] [--trace-out t.json]
-        [--metrics-out m.json]
+        [--prompt-len 32] [--gen 16] [--full] [--device cuda]
+        [--plan-table plan.npz [--energy-budget E]
+         [--calibration ledger.json [--drift-tol 0.05]]]
+        [--trace-out t.json] [--metrics-out m.json]
 
 The port of ``repro/launch/serve.py``, for qwen3-4b (dense, KV cache) and
 xlstm-1.3b (recurrent state; its prompt length must be a multiple of 128 or
-below 128). Without ``--smoke`` the architecture runs at its full width
-(qwen3-4b: 36 layers, d 2560, 4,411,417,600 parameters; xlstm-1.3b: 48
-layers, d 2048) with random weights from ``--seed``; ``--smoke`` takes the
-small config of the same architecture.
+below 128). As in ``repro``, the CLI and :func:`serve` default to the small
+config of the architecture (``--smoke`` is accepted and changes nothing);
+``--full`` (``serve(smoke=False)``) runs it at its full width (qwen3-4b: 36
+layers, d 2560, 4,411,417,600 parameters; xlstm-1.3b: 48 layers, d 2048)
+with random weights from ``--seed``. So the planner CLI's default table
+serves under this CLI's default.
 
 **Step functions.** ``repro`` jits prefill and decode once per shape
 (``_step_fns``). Here :func:`_step_fns` caches, per (arch, smoke, batch,
@@ -37,6 +40,13 @@ task copies the state it reads into the graph's inputs and emits a copy of
 what the graph wrote, so nothing the runtime stores or reloads is a buffer
 a later replay overwrites. Scheduling changes, results never do: planned
 and unplanned serving give the same tokens.
+
+**Calibration.** ``--calibration`` (with ``--plan-table``) takes a measured
+profile — a calibration JSON (``MeasuredCostTable.to_json``, e.g. of
+``MeasuredCostTable.from_ledger_json`` on the traffic harness's
+``--ledger-out``) — and, before serving, probes the table against it
+(:func:`calibration_probe`): a table whose cycles the measurements price
+more than ``--drift-tol`` away is refused.
 """
 
 from __future__ import annotations
@@ -57,7 +67,8 @@ from ..obs.metrics import METRICS
 from ..obs.trace import TRACER
 from .traffic import Continuation, Request
 
-__all__ = ["serve", "main", "PlannedExecutor", "TRACE_COUNT", "reset_trace_counts"]
+__all__ = ["serve", "main", "PlannedExecutor", "TRACE_COUNT", "reset_trace_counts",
+           "calibration_probe"]
 
 # Builds of the step functions and captures of the decode graph (never
 # calls): the serving tests pin these at zero across repeated planned and
@@ -414,7 +425,7 @@ def _serve_planned(arch, batch, prompt_len, gen, smoke, seed, device, params,
     return seqs
 
 
-def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = False,
+def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = True,
           seed: int = 0, device="cuda", params=None, plan_table=None,
           energy_budget: Optional[float] = None, nvm=None, crash_hook=None,
           report: Optional[dict] = None) -> torch.Tensor:
@@ -422,7 +433,9 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = Fal
     (int64, on the host). The cache is the KV cache or the recurrent state,
     as the architecture's family has it.
 
-    Parameters come from ``api.init_params(cfg, seed)`` unless ``params``
+    ``smoke`` takes the architecture's small config (the default, as in
+    ``repro``); ``smoke=False`` its full width. Parameters come from
+    ``api.init_params(cfg, seed)`` unless ``params``
     (a model already on ``device``) is given; the prompts are drawn from a
     generator seeded with ``seed + 1``. ``plan_table`` (path / PlanTable /
     ServePlanner) switches to the planned path of the module docstring;
@@ -478,6 +491,28 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = Fal
     return seqs
 
 
+def calibration_probe(plan_table, arch: str, measured, *, smoke: bool = True,
+                      device="cuda", drift_tol: float = 0.05, k: Optional[int] = 4,
+                      seed: int = 0) -> int:
+    """Probe ``plan_table`` (path or PlanTable) against the ``measured``
+    profile before serving: ``k`` cells (``None``: all) re-solved on the
+    engine of ``device`` (the sweep kernel on a card, its plain version on
+    the CPU), each cycle repriced under the measured mean model. Raises
+    ``StaleTableError`` when a cycle drifts beyond ``drift_tol``; returns
+    the number of cells probed and prints the reference's probe line."""
+    from ..core.plan_table import PlanTable, probe_plan_table
+    from .planner import _BACKEND_OF_DEVICE
+
+    table = PlanTable.load(plan_table) if isinstance(plan_table, str) else plan_table
+    backend = _BACKEND_OF_DEVICE[resolve_device(device).type]
+    n = probe_plan_table(table, resolve_config(arch, smoke=smoke), k=k, seed=seed,
+                         backend=backend, measured=measured, drift_tol=drift_tol)
+    where = plan_table if isinstance(plan_table, str) else table.summary()
+    print(f"[serve] calibration probe: {n} cells of {where} within {drift_tol:.1%} "
+          f"of the measured profile ({measured.n_samples} samples) — serving", flush=True)
+    return n
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -486,8 +521,10 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--full", action="store_true",
+                    help="the architecture's full width instead of its small config")
     ap.add_argument("--smoke", action="store_true",
-                    help="the architecture's small config instead of its full width")
+                    help="the small config (the default; kept for older command lines)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--plan-table", default=None,
                     help="precomputed PlanTable (.npz): the energy-bounded planned path")
@@ -499,17 +536,25 @@ def main(argv=None) -> int:
     ap.add_argument("--metrics-out", default=None,
                     help="write the metrics-registry snapshot as JSON")
     ap.add_argument("--calibration", default=None,
-                    help="not supported by the port (ROADMAP.md queue 1, item 6)")
-    ap.add_argument("--drift-tol", type=float, default=None,
-                    help="not supported by the port (ROADMAP.md queue 1, item 6)")
+                    help="measured-cost calibration JSON (MeasuredCostTable.to_json): "
+                         "probe the plan table against the measured profile before "
+                         "serving and refuse stale plans (requires --plan-table)")
+    ap.add_argument("--drift-tol", type=float, default=0.05,
+                    help="relative drift tolerance for the --calibration probe "
+                         "(default 0.05)")
     args = ap.parse_args(argv)
-    if args.calibration is not None or args.drift_tol is not None:
-        ap.error("--calibration and --drift-tol need the measured-cost calibration "
-                 "(core/calibration.py), which is ROADMAP.md queue 1, item 6 and not "
-                 "ported yet")
     if args.trace_out:
         TRACER.configure(enabled=True)
-    serve(args.arch, args.batch, args.prompt_len, args.gen, smoke=args.smoke,
+    if args.calibration:
+        if not args.plan_table:
+            ap.error("--calibration requires --plan-table")
+        from ..core.calibration import MeasuredCostTable
+
+        calibration_probe(args.plan_table, args.arch,
+                          MeasuredCostTable.from_json(args.calibration),
+                          smoke=not args.full, device=args.device,
+                          drift_tol=args.drift_tol)
+    serve(args.arch, args.batch, args.prompt_len, args.gen, smoke=not args.full,
           seed=args.seed, device=args.device, plan_table=args.plan_table,
           energy_budget=args.energy_budget)
     if args.trace_out:

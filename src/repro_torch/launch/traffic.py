@@ -51,9 +51,16 @@ CLI (smoke-checkable, used by CI)::
 
 ``--build`` builds the table in-process instead (on the sweep kernel with
 ``--device cuda``, its plain version with ``--device cpu``). ``--full``
-serves the architecture at its published width. The calibration loop
-(``--replan``, ``--drift-tol``, ``--expect-replan-identical``,
-``--calibration``) is ROADMAP.md queue 1, item 6.
+serves the architecture at its published width.
+
+**The calibration loop** (``--build --replan``, :func:`replan`): the run's
+energy ledger becomes a measured cost table
+(:class:`~repro_torch.core.calibration.MeasuredCostTable`), the plan table
+is rebuilt under it on the same buckets and Q grid, the rebuild is probed
+against the measured profile within ``--drift-tol``, and its content digest
+is compared with the original's. When the measured draw matches the
+analytical model the rebuild is byte-identical
+(``--expect-replan-identical`` gates on that).
 """
 
 from __future__ import annotations
@@ -102,6 +109,8 @@ __all__ = [
     "poisson_arrivals",
     "trace_arrivals",
     "load_trace",
+    "replan",
+    "Replan",
     "main",
 ]
 
@@ -874,6 +883,47 @@ class TrafficHarness:
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass
+class Replan:
+    """What one turn of the calibration loop gave: the rebuilt table, the
+    cells its probe covered (``stale`` holds the probe's refusal instead),
+    whether it is byte-identical to the original, and the seconds of the
+    rebuild and of the probe."""
+
+    table: Any
+    probed: Optional[int]
+    stale: Optional[str]
+    identical: bool
+    build_s: float
+    probe_s: float
+
+
+def replan(table, cfg, measured, *, backend: str = "cuda", drift_tol: float = 0.05,
+           k: Optional[int] = 4, seed: int = 0) -> Replan:
+    """Rebuild ``table`` under ``measured`` (installed as the default cost
+    source of its kind for the build) on the table's own buckets and Q
+    grid, on ``backend``; probe the rebuild at ``k`` cells against the
+    measured profile within ``drift_tol``, priced at the measured mean; and
+    compare content digests with the original."""
+    from ..core.calibration import use_measured
+    from ..core.plan_table import StaleTableError, build_plan_table, probe_plan_table
+
+    t0 = time.perf_counter()
+    with use_measured(measured):
+        rebuilt = build_plan_table(cfg, table.buckets(), table.q_values(), kind=table.kind,
+                                   backend=backend)
+    t1 = time.perf_counter()
+    probed, stale = None, None
+    try:
+        probed = probe_plan_table(rebuilt, cfg, k=k, seed=seed, cost=measured.cost_model(),
+                                  backend=backend, measured=measured, drift_tol=drift_tol)
+    except StaleTableError as exc:
+        stale = str(exc)
+    return Replan(table=rebuilt, probed=probed, stale=stale,
+                  identical=rebuilt.content_digest() == table.content_digest(),
+                  build_s=t1 - t0, probe_s=time.perf_counter() - t1)
+
+
 def _parse_shapes(text: str) -> List[Tuple[int, int, int]]:
     """Comma-separated BATCHxPROMPTxGEN request shapes (e.g. 2x8x8)."""
     out = []
@@ -951,21 +1001,22 @@ def main(argv=None) -> int:
                          "(deterministic (rid, cycle) row order)")
     ap.add_argument("--table-out", default=None,
                     help="with --build: save the in-process plan table (.npz)")
-    for flag in ("--replan", "--expect-replan-identical"):
-        ap.add_argument(flag, action="store_true",
-                        help="not supported by the port (ROADMAP.md queue 1, item 6)")
-    ap.add_argument("--drift-tol", type=float, default=None,
-                    help="not supported by the port (ROADMAP.md queue 1, item 6)")
-    ap.add_argument("--calibration", default=None,
-                    help="not supported by the port (ROADMAP.md queue 1, item 6)")
+    ap.add_argument("--replan", action="store_true",
+                    help="close the calibration loop in-process: ingest the run's "
+                         "ledger into a measured cost table, rebuild the plan table "
+                         "under it, and probe the rebuild against the measured "
+                         "profile (requires --build)")
+    ap.add_argument("--drift-tol", type=float, default=0.05,
+                    help="relative drift tolerance for the --replan probe")
+    ap.add_argument("--expect-replan-identical", action="store_true",
+                    help="exit nonzero unless the --replan rebuild is byte-identical "
+                         "to the original table (holds when the measured draw "
+                         "matches the analytical model)")
     args = ap.parse_args(argv)
-    if (args.replan or args.expect_replan_identical or args.drift_tol is not None
-            or args.calibration is not None):
-        ap.error("--replan, --drift-tol, --expect-replan-identical and --calibration "
-                 "need the measured-cost calibration (core/calibration.py), which is "
-                 "ROADMAP.md queue 1, item 6 and not ported yet")
-    if args.table_out and not (args.build or args.plan_table is None):
-        ap.error("--table-out needs the in-process --build path")
+    if (args.replan or args.table_out) and not (args.build or args.plan_table is None):
+        ap.error("--replan/--table-out need the in-process --build path")
+    if args.expect_replan_identical and not args.replan:
+        ap.error("--expect-replan-identical requires --replan")
 
     # CLI runs report through the structured emitter on stdout; library and
     # pytest use stay silent (no handler attached).
@@ -1067,6 +1118,30 @@ def main(argv=None) -> int:
                         f"{args.expect_deferred}")
     if args.expect_zero_retrace and report.retraces:
         failures.append(f"retraces {report.trace_delta} != 0 after warmup")
+    if args.replan:
+        from ..configs import resolve_config
+        from ..core.calibration import MeasuredCostTable
+
+        measured = MeasuredCostTable.from_ledger(report.ledger, kind="time")
+        restore = measured.stats["restore"]
+        _LOG.emit(f"calibrated {measured.n_samples} ledger samples "
+                  f"(restore mean={restore.mean:.6g} std={restore.std:.6g}, "
+                  f"fingerprint {measured.fingerprint()[:12]})",
+                  n_samples=measured.n_samples)
+        res = replan(table, resolve_config(args.arch, smoke=not args.full), measured,
+                     backend=_BACKEND_OF_DEVICE[torch.device(args.device).type],
+                     drift_tol=args.drift_tol, seed=args.seed)
+        if res.stale is None:
+            _LOG.emit(f"replan probe: {res.probed} cells within "
+                      f"{args.drift_tol:.1%} of the measured profile")
+        else:
+            failures.append(f"replanned table stale vs measured profile: {res.stale}")
+        _LOG.emit(f"replanned table digest {res.table.content_digest()[:16]} "
+                  f"({'identical to' if res.identical else 'differs from'} "
+                  f"the original)", identical=res.identical)
+        if args.expect_replan_identical and not res.identical:
+            failures.append("replanned table differs from the original "
+                            "(measured draw drifted from the model)")
     if failures:
         _LOG.emit(f"FAILED: {'; '.join(failures)}")
         return 1

@@ -155,7 +155,7 @@ NAN = float("nan")
     (dict(cost=object()), api.SpecError),                      # not a CostModel
     (dict(sharding=4), api.SpecError),                         # ROADMAP item 9
     (dict(placement=object()), api.SpecError),                 # ROADMAP item 8
-    (dict(confidence=0.9), api.SpecError),                     # ROADMAP item 6
+    (dict(confidence=1.5), api.SpecError),                     # outside (0, 1)
     (dict(interpret=True), api.SpecError),
     (dict(config="qwen3-4b", shapes=()), api.SpecError),
 ])
@@ -175,8 +175,7 @@ def test_spec_errors(spec, err):
 def test_not_ported_fields_name_their_roadmap_item():
     g, cm, _, _ = _family("random", 0)
     pg, pc = port_of(g, cm)
-    for field, item in (("sharding", "item 9"), ("placement", "item 8"),
-                        ("confidence", "item 6")):
+    for field, item in (("sharding", "item 9"), ("placement", "item 8")):
         with pytest.raises(api.SpecError, match=item):
             api.PartitionSpec(graph=pg, cost=pc, **{field: 1})
 
@@ -213,8 +212,9 @@ def test_dispatch_errors():
         Engine({}).solve(api.PartitionSpec(graph=pg, cost=pc))
     with pytest.raises(api.SpecError):
         register_backend("bad", objectives=("frobnicate",), registry={})
-    assert api.backend_names() == ["cuda", "numpy", "torch"]
-    assert [api.backend_info(n).auto_eligible for n in api.backend_names()] == [True, False, False]
+    assert api.backend_names() == ["cuda", "numpy", "scan", "scan-cpu", "torch"]
+    assert [api.backend_info(n).auto_eligible for n in api.backend_names()] == [
+        True, False, True, False, False]
 
 
 def test_auto_is_the_card_and_never_the_cpu():

@@ -299,10 +299,18 @@ def test_serve_cli_planned_on_cpu(tables, tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--calibration", "c.json"], ["--drift-tol", "0.1"]])
 def test_serve_cli_calibration_names_its_roadmap_item(flag, capsys):
-    with pytest.raises(SystemExit) as e:
-        serve_mod.main(["--smoke", "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "queue 1, item 6" in capsys.readouterr().err
+    """Calibration is ported: as in ``repro``, ``--calibration`` without
+    ``--plan-table`` is refused, and ``--drift-tol`` alone is accepted."""
+    argv = ["--smoke", "--device", "cpu", "--batch", "1", "--prompt-len", "4", "--gen", "2",
+            *flag]
+    if flag[0] == "--calibration":
+        with pytest.raises(SystemExit) as e:
+            serve_mod.main(argv)
+        assert e.value.code == 2
+        assert "--calibration requires --plan-table" in capsys.readouterr().err
+    else:
+        assert serve_mod.main(argv) == 0
+        assert "decode 1 steps" in capsys.readouterr().out
 
 
 def test_planned_path_on_cuda_without_a_card_raises(tables):
@@ -312,3 +320,21 @@ def test_planned_path_on_cuda_without_a_card_raises(tables):
         serve("qwen3-4b", BATCH, PROMPT, GEN, smoke=True, plan_table=tables["qwen3-4b"])
     with pytest.raises(RuntimeError, match="cuda"):
         serve_mod.PlannedExecutor("qwen3-4b", tables["qwen3-4b"], smoke=True)
+
+
+def test_planner_and_serve_cli_defaults_compose(tmp_path, capsys):
+    """As in ``repro``, both CLIs default to the smoke config, so the
+    planner's default table serves the serve CLI's default request; and
+    ``serve()`` defaults to the smoke config too."""
+    import inspect
+
+    from repro_torch.launch import planner as planner_mod
+
+    assert inspect.signature(serve).parameters["smoke"].default is True
+    assert inspect.signature(ref_serve.serve).parameters["smoke"].default is True
+    path = str(tmp_path / "t.npz")
+    assert planner_mod.main(["--device", "cpu", "--out", path]) == 0
+    assert serve_mod.main(["--device", "cpu", "--plan-table", path]) == 0
+    out = capsys.readouterr().out
+    assert "planned batch=4 prefill(32 tok)+15 decode steps" in out
+    assert "qwen3-smoke b4/s48" in out

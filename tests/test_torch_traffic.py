@@ -864,9 +864,24 @@ def test_traffic_cli_builds_and_serves_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flag", [["--replan"], ["--expect-replan-identical"],
                                   ["--drift-tol", "0.1"], ["--calibration", "c.json"]])
 def test_traffic_cli_calibration_names_its_roadmap_item(flag, capsys):
+    """The calibration loop is ported with ``repro``'s flags: ``--replan``
+    and ``--drift-tol`` run, ``--expect-replan-identical`` needs
+    ``--replan``, and ``repro``'s traffic CLI has no ``--calibration``."""
     from repro_torch.launch.traffic import main
 
+    argv = ["--build", "--device", "cpu", "--n", "2", "--interval", "0", "--shapes", "1x4x2",
+            *flag]
+    if flag[0] in ("--replan", "--drift-tol"):
+        assert main(argv) == 0
+        out = capsys.readouterr().out
+        assert "2/2 completed" in out
+        assert ("identical to the original" in out) == (flag[0] == "--replan")
+        return
     with pytest.raises(SystemExit) as e:
-        main(["--build", "--device", "cpu", *flag])
+        main(argv)
     assert e.value.code == 2
-    assert "queue 1, item 6" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flag[0] == "--calibration":
+        assert "unrecognized arguments: --calibration" in err
+    else:
+        assert "--expect-replan-identical requires --replan" in err
