@@ -64,7 +64,23 @@ version on the card, and drives the port's paths:
 9. the dense sweep engine (``scan``) on the card: the three tables rebuilt
    in one batched pass each, byte-equal to the kernel's builds, both timed;
    the dense export's bytes, and ``auto`` leaving the full head count
-   (about 1.07 GB dense) on the kernel.
+   (about 1.07 GB dense) on the kernel;
+10. swarm placement (``repro_torch.launch.swarm.main`` on the card):
+   qwen3-4b b4 × 512 and xlstm-1.3b b1 × 1024 at full width over 3 nodes of
+   compute scales 1, 1.5, 2 (qwen3-4b also homogeneous), the ns_mini
+   fixture and a seeded random 512-task chain over 4 nodes, each on 25
+   links × 3 memory × 3 Q scales with each node's NVM at the graph's span
+   footprint; each grid solved again on the card and by the
+   numpy oracle, all six DP arrays bitwise equal, every feasible plan
+   conserving, and the CLI's table byte-equal to the numpy sweep's;
+11. the ``dse`` CLI on the card: qwen3-4b's time table with 1, 2 and 3 Q
+   shards (digests equal to the plan_table phase's), an extension equal to
+   a fresh build of the union grid that solves only the new cells, the
+   probe at k=8, ``--calibrate`` on the traffic ledger (passes) and on it
+   drifted ×1.8 (refused), and ``--placement`` equal to the swarm phase's
+   table for the same spec; sharded sweeps through the façade on the
+   kernel, one-point chunks of qwen3-4b's grid and THERMAL's 96-lane grid
+   in 5 and in 96 chunks (other cluster layouts), bitwise equal.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -1968,6 +1984,338 @@ def dense_engine(built, g_thermal, cm_thermal) -> dict:
     return row
 
 
+# The swarm path: the swarm CLI on each case with 3 nodes (the chain: 4) of
+# these compute scales, the default 25 links (900:3400:100 mbps) and these
+# Q and memory scales: 225 grid points. Each node's NVM is the whole graph's
+# span footprint, so that the memory axis's 0.5 refuses some cells. At the
+# base Q scale (0.8 of Q_min × 1.25) only node 0 (compute scale 1) can run a
+# burst, so the base cell, which decides the CLI's exit code, is feasible
+# only where one node holds the whole footprint: the base memory scale is 1.
+SWARM_ARCHS = (("qwen3-4b", "4x512"), ("xlstm-1.3b", "1x1024"))
+SWARM_COMPUTE_SCALES = "1,1.5,2"
+SWARM_Q_SCALES = "0.8,1,1.25"
+SWARM_MEMORY_SCALES = "1,0.5,2"
+SWARM_MEMORY_SHARE = 1.0
+SWARM_CHAIN = (512, 4, "1,1.5,2,1")   # tasks, nodes, compute scales
+SWARM_ARRAYS = ("inner_S", "inner_A", "outer_dp", "outer_parent", "e_total", "k_used")
+
+
+def random_ns_profile(directory: Path, n: int, seed: int):
+    """A seeded random NS Optimizer profile (``prof.csv``, ``dep.csv``): a
+    chain of ``n`` layers, each reading its predecessor and, one in four,
+    a layer up to 8 back; layer times 0.1-1 ms, outputs 0.01-2 mb."""
+    rng = np.random.default_rng(seed)
+    directory.mkdir(parents=True, exist_ok=True)
+    prof = ["Layer name,time,output mb,memory mb,MACs"]
+    dep = ["Source,Destination"]
+    for i in range(n):
+        prof.append(f"L{i},{rng.uniform(1e-4, 1e-3)!r},{rng.uniform(0.01, 2.0)!r},"
+                    f"{rng.uniform(0.1, 4.0)!r},0")
+        if i >= 1:
+            dep.append(f"L{i - 1},L{i}")
+        if i >= 2 and rng.random() < 0.25:
+            dep.append(f"L{int(rng.integers(max(0, i - 8), i - 1))},L{i}")
+    (directory / "prof.csv").write_text("\n".join(prof) + "\n")
+    (directory / "dep.csv").write_text("\n".join(dep) + "\n")
+    return str(directory / "prof.csv"), str(directory / "dep.csv")
+
+
+def swarm_case(name, mode, nodes, scales, workdir: Path, dev) -> dict:
+    """One run of the swarm CLI (``repro_torch.launch.swarm.main``) on the
+    card, then the same spec solved again by ``solve_placement_torch`` on
+    the card and by the numpy oracle: all six DP arrays bitwise equal, and
+    the CLI's ``--table-out`` byte-equal to the table built from the numpy
+    sweep with the same meta."""
+    import argparse
+    import contextlib
+    import io
+
+    from repro_torch.core.placement import (PLACEMENT_COUNT, LinkModel, PlacementSpec,
+                                            PlacementTable, placement_inputs,
+                                            solve_placement_numpy)
+    from repro_torch.core.placement_torch import solve_placement_torch
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import swarm
+
+    loaded = argparse.Namespace(**{"prof": None, "dep": None, "arch": None,
+                                   "buckets": "2x16", "full": True, "kind": None, **mode})
+    graph, cm, _ = swarm.load_graph(loaded)
+    n = graph.n_tasks
+    one = placement_inputs(graph, cm, PlacementSpec(nodes=1, link=LinkModel(900.0)))
+    memory = SWARM_MEMORY_SHARE * float(one.mem[1, n])
+    table_path = workdir / f"{name}.json"
+    argv = (["--prof", mode["prof"], "--dep", mode["dep"]] if "prof" in mode
+            else ["--arch", mode["arch"], "--full", "--buckets", mode["buckets"]])
+    argv += ["--nodes", str(nodes), "--node-memory", repr(memory), "--q-scales",
+             SWARM_Q_SCALES, "--memory-scales", SWARM_MEMORY_SCALES,
+             "--device", dev.type, "--table-out", str(table_path)]
+    if scales:
+        argv += ["--compute-scales", scales]
+    backend = "scan" if dev.type == "cuda" else "scan-cpu"
+    l0, c0 = sweep_columns_cuda.launches, PLACEMENT_COUNT[backend]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = swarm.main(argv)
+    cli_s = time.perf_counter() - t0
+    cli_launches = sweep_columns_cuda.launches - l0
+    cli_scan_solves = PLACEMENT_COUNT[backend] - c0
+    meta = json.loads(table_path.read_text())["meta"]
+
+    spec, _ = swarm.build_swarm_spec(graph, cm, argparse.Namespace(
+        node_q=meta["node_q"], compute_scales=scales, nodes=nodes, node_memory=memory,
+        bandwidths="900:3400:100", q_scales=SWARM_Q_SCALES,
+        memory_scales=SWARM_MEMORY_SCALES, backend="auto", device=dev.type))
+    inputs = placement_inputs(graph, cm, spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    got = solve_placement_torch(graph, cm, spec, inputs=inputs, device=dev)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    t0 = time.perf_counter()
+    want = solve_placement_numpy(graph, cm, spec, inputs=inputs)
+    numpy_s = time.perf_counter() - t0
+    differ = [f for f in SWARM_ARRAYS
+              if not (getattr(got, f).dtype == getattr(want, f).dtype
+                      and getattr(got, f).shape == getattr(want, f).shape
+                      and getattr(got, f).tobytes() == getattr(want, f).tobytes())]
+    oracle_path = workdir / f"{name}.numpy.json"
+    PlacementTable(dataclasses.replace(want, backend=got.backend), meta=meta).to_json(
+        str(oracle_path))
+    table_equal = table_path.read_bytes() == oracle_path.read_bytes()
+    L, M, Z = spec.grid_shape
+    row = {"case": name, "tasks": n, "nodes": nodes, "compute_scales": scales or None,
+           "grid": [L, M, Z], "node_q": meta["node_q"], "node_memory": memory,
+           "cli_rc": rc, "cli_s": cli_s, "cli_sweep_launches": cli_launches,
+           "cli_scan_solves": cli_scan_solves,
+           "cli_ledger_line": next((ln for ln in out.getvalue().splitlines()
+                                    if ln.startswith("[swarm] ledger")), None),
+           "card_solve_s": card_s, "numpy_solve_s": numpy_s, "card_peak_bytes": peak,
+           "feasible_cells": int(np.isfinite(got.e_total).sum()),
+           "nodes_used": np.bincount(got.k_used.ravel(), minlength=nodes + 1).tolist(),
+           "arrays_differ": differ, "table_byte_equal_numpy": table_equal}
+    ok = (rc == 0 and not differ and table_equal and cli_scan_solves == 1
+          and cli_launches == 1 and 0 < row["feasible_cells"]
+          and (row["feasible_cells"] < L * M * Z or not scales))
+    if not ok:
+        raise AssertionError(f"swarm case failed: {row}\n{out.getvalue()[-2000:]}")
+    row["_table"], row["_memory"], row["_inputs"] = table_path, memory, inputs
+    return row
+
+
+def placement_path(workdir: Path, dev) -> dict:
+    """The swarm path on the card: each case of SWARM_ARCHS at full width,
+    qwen3-4b's bucket also homogeneous (the ``dse --placement`` phase's
+    spec), the ns_mini fixture and a seeded random 512-task chain over 4
+    nodes (see :func:`swarm_case`); the sweep kernel's launches are the
+    per-node budgets' Q_min solves, and the device ops of one inner
+    column of the chain's solve."""
+    from repro_torch.core.placement_torch import _inner_dp, _lane_energies
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    fixture = ROOT / "tests" / "fixtures" / "ns_mini"
+    prof, dep = random_ns_profile(workdir / "chain", SWARM_CHAIN[0], seed=0)
+    cases = [(arch, {"arch": arch, "buckets": b}, 3, SWARM_COMPUTE_SCALES)
+             for arch, b in SWARM_ARCHS]
+    cases += [("qwen3-4b-homogeneous", {"arch": "qwen3-4b", "buckets": SWARM_ARCHS[0][1]},
+               3, ""),
+              ("ns_mini", {"prof": str(fixture / "prof.csv"), "dep": str(fixture / "dep.csv")},
+               3, SWARM_COMPUTE_SCALES),
+              ("chain512", {"prof": prof, "dep": dep}, SWARM_CHAIN[1], SWARM_CHAIN[2])]
+    sweep_columns_cuda.launches = 0
+    t0 = time.perf_counter()
+    rows = [swarm_case(name, mode, nodes, scales, workdir, dev)
+            for name, mode, nodes, scales in cases]
+    seconds = time.perf_counter() - t0
+    launches = sweep_columns_cuda.launches
+
+    # device ops of the chain's inner DP (every (node, q_scale) lane at once)
+    inp = rows[-1]["_inputs"]
+    n, lanes = inp.n_tasks, inp.n_nodes * inp.q_thresh.shape[1]
+    ec = _lane_energies(inp, dev)
+    _inner_dp(ec, n)
+    kernels = profile_device(lambda: _inner_dp(ec, n))
+    inner_launches = sum(c for us, c in kernels.values() if us > 0)
+    row = {"phase": "placement", "seconds": seconds, "sweep_launches": launches,
+           "cases": [{k: v for k, v in r.items() if not k.startswith("_")} for r in rows],
+           "chain_inner_device_launches": inner_launches,
+           "chain_inner_ops_per_column": inner_launches / n,
+           "chain_inner_lanes": lanes}
+    emit(row)
+    if launches != len(rows):
+        raise AssertionError(f"placement: {launches} sweep launches for {len(rows)} "
+                             "Q_min solves")
+    return {"launches": launches, "tables": {r["case"]: r["_table"] for r in rows},
+            "memory": {r["case"]: r["_memory"] for r in rows}}
+
+
+def sharded_sweeps(cases, dev) -> list:
+    """Q shards on the sweep kernel through the façade: each (graphs, grid,
+    shard count) solved whole and in chunks, every sweep table bitwise
+    equal. The chunks' lane counts set other cluster layouts than the whole
+    grid's (warps a lane, CTAs, dp in shared or device memory)."""
+    from repro_torch.api import PartitionSpec, QGridSharding, solve
+    from repro_torch.core.partition_torch import shard_q_grid
+    from repro_torch.kernels._build import smem_optin
+    from repro_torch.kernels.partition_sweep.kernel import (lane_warps, sweep_columns_cuda,
+                                                            sweep_layout)
+
+    def layout(n, nq):
+        lay = sweep_layout(n, nq, smem_optin(dev.index or 0))
+        return [nq, lane_warps(nq), lay.cluster, lay.dp_in_smem]
+
+    rows = []
+    for name, graphs, cm, qs, k in cases:
+        spec = dict(graphs=tuple(graphs), cost=cm, q_grid=tuple(qs),
+                    backend="cuda" if dev.type == "cuda" else "torch")
+        whole = solve(PartitionSpec(**spec)).sweeps
+        l0 = sweep_columns_cuda.launches
+        got = solve(PartitionSpec(sharding=QGridSharding(k), **spec)).sweeps
+        differ = [f for a, b in zip(got, whole)
+                  for f in ("dp", "parent", "e_total", "feasible", "starts")
+                  if getattr(a, f).tobytes() != getattr(b, f).tobytes()]
+        n = max(g.n_tasks for g in graphs)
+        chunks = shard_q_grid(len(qs), k)
+        rows.append({"case": name, "graphs": len(graphs), "q_points": len(qs),
+                     "shards": len(chunks), "launches": sweep_columns_cuda.launches - l0,
+                     "whole_layout": layout(n, len(qs)),
+                     "chunk_layouts": sorted({tuple(layout(n, hi - lo)) for lo, hi in chunks}),
+                     "differ": differ})
+    return rows
+
+
+def dse_path(built, ledger, swarm, thermal, workdir: Path, dev) -> int:
+    """The ``dse`` CLI on the card: qwen3-4b's full-width time table built
+    with 1, 2 and 3 Q shards (content digests equal to each other and to
+    the plan_table phase's table); a 4-bucket × 9-Q base extended by 4
+    buckets and 8 Q points (equal to a fresh build of the union grid, with
+    only the new cells solved, read from the extension's trace); the probe
+    at k=8; ``--calibrate`` on the traffic run's ledger (passes) and on the
+    same ledger drifted ×1.8 (refused); ``--placement`` whose payload equals
+    the swarm phase's homogeneous qwen3-4b table. Then :func:`sharded_sweeps`
+    on one-point chunks of qwen3-4b's grid and on THERMAL's 96-lane grid
+    (``thermal``: graph, cost, grid) in 5 and in 96 chunks. Returns the
+    sweep launches of the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.layer_profile import default_cost_model
+    from repro_torch.core.plan_table import PlanTable, build_plan_table
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import dse
+    from repro_torch.launch.planner import lower_buckets
+    from repro_torch.obs.trace import TRACER
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    ref = next(t["table"] for t in built if t["arch"] == "qwen3-4b" and t["kind"] == "time")
+    arch = ["--arch", "qwen3-4b", "--full", "--device", dev.type]
+    every = ",".join(f"{b}x{s}" for b, s in QWEN_TABLE_BUCKETS)
+    sweep_columns_cuda.launches = 0
+
+    def run(argv):
+        l0, t0 = sweep_columns_cuda.launches, time.perf_counter()
+        rc = dse.main(arch + argv)
+        return rc, sweep_columns_cuda.launches - l0, time.perf_counter() - t0
+
+    shards = []
+    for k in (1, 2, 3):
+        path = workdir / f"qwen_time_shards{k}.npz"
+        rc, launches, secs = run(["--buckets", every, "--shards", str(k), "--out", str(path)])
+        t = PlanTable.load(str(path))
+        shards.append({"shards": k, "rc": rc, "sweep_launches": launches, "seconds": secs,
+                       "digest": t.content_digest()[:16],
+                       "equal_plan_table_phase": t.content_digest() == ref.content_digest()})
+    nb = len(QWEN_TABLE_BUCKETS)
+    shards_ok = all(r["rc"] == 0 and r["equal_plan_table_phase"]
+                    and r["sweep_launches"] == nb * (1 + r["shards"]) for r in shards)
+
+    base_path = workdir / "qwen_time_extend.npz"
+    first = ",".join(f"{b}x{s}" for b, s in QWEN_TABLE_BUCKETS[:4])
+    rc_base, base_launches, _ = run(["--buckets", first, "--q-points", "8",
+                                     "--out", str(base_path)])
+    base = PlanTable.load(str(base_path))
+    finite = [q for q in base.q_values() if q is not None]
+    add = [float(q) for q in np.geomspace(min(finite) * 1.03, max(finite) * 0.97, 8)]
+    trace_path = workdir / "extend_trace.json"
+    rc_ext, ext_launches, ext_s = run(["--buckets", every, "--extend", "--add-q",
+                                       ",".join(repr(q) for q in add), "--out", str(base_path),
+                                       "--trace-out", str(trace_path)])
+    TRACER.disable()
+    TRACER.reset()
+    ext = PlanTable.load(str(base_path))
+    solved = [[ev["args"]["graphs"], ev["args"]["q_points"]]
+              for ev in json.loads(trace_path.read_text())["traceEvents"]
+              if ev.get("name") == "plan_table.extend"]
+    fresh = build_plan_table(get_config("qwen3-4b"), QWEN_TABLE_BUCKETS,
+                             base.q_values() + add, kind="time",
+                             backend="cuda" if dev.type == "cuda" else "torch")
+    extend = {"base": [base.n_buckets, base.n_q], "base_rc": rc_base,
+              "base_sweep_launches": base_launches, "rc": rc_ext,
+              "final": [ext.n_buckets, ext.n_q], "sweep_launches": ext_launches,
+              "seconds": ext_s, "solved_blocks": solved,
+              "cells_solved": sum(g * q for g, q in solved),
+              "cells_moved": base.n_buckets * base.n_q,
+              "equal_fresh_build": ext.content_digest() == fresh.content_digest(),
+              "lineage": len(ext.lineage)}
+    extend_ok = (rc_base == rc_ext == 0 and extend["equal_fresh_build"]
+                 and extend["final"] == [nb, base.n_q + 8]
+                 and solved == [[nb - 4, base.n_q + 8], [4, 8]]
+                 and ext_launches == nb and extend["lineage"] == 2)
+
+    shard1 = str(workdir / "qwen_time_shards1.npz")
+    rc_probe, probe_launches, probe_s = run(["--probe-only", "--probe", "8", "--out", shard1])
+    clean_path, drift_path = workdir / "traffic_ledger.json", workdir / "drifted_ledger.json"
+    ledger.dump_json(str(clean_path), kind="time")
+    payload = json.loads(clean_path.read_text())
+    for e in payload["entries"]:
+        e["energy"] *= 1.8
+    drift_path.write_text(json.dumps(payload, indent=2) + "\n")
+    rc_cal, cal_launches, cal_s = run(["--calibrate", str(clean_path), "--out", shard1])
+    rc_drift, _, _ = run(["--calibrate", str(drift_path), "--out", shard1,
+                          "--calibration-out", str(workdir / "drifted.calib.json")])
+
+    place_path = workdir / "qwen_placement.json"
+    rc_place, place_launches, place_s = run([
+        "--placement", "--buckets", SWARM_ARCHS[0][1], "--nodes", "3",
+        "--node-memory", repr(swarm["memory"]["qwen3-4b-homogeneous"]),
+        "--q-scales", SWARM_Q_SCALES, "--memory-scales", SWARM_MEMORY_SCALES,
+        "--out", str(place_path)])
+    got = json.loads(place_path.read_text())
+    want = json.loads(swarm["tables"]["qwen3-4b-homogeneous"].read_text())
+
+    def solved_content(p):
+        # the swarm CLI names its nodes and writes its own meta; dse does neither
+        return {**{k: v for k, v in p.items() if k not in ("meta", "fingerprint")},
+                "nodes": [{k: v for k, v in nd.items() if k != "name"} for nd in p["nodes"]]}
+
+    place_equal = solved_content(got) == solved_content(want)
+    g_th, cm_th, grid_th = thermal
+    qwen = lower_buckets(get_config("qwen3-4b"), QWEN_TABLE_BUCKETS, "time")
+    qs = ref.q_values()
+    sharded = sharded_sweeps([("qwen3-4b one-point chunks", qwen, default_cost_model("time"),
+                               qs, len(qs)),
+                              ("thermal 96 lanes in 5", [g_th], cm_th, grid_th, 5),
+                              ("thermal 96 lanes in 96", [g_th], cm_th, grid_th, 96)], dev)
+    launches = sweep_columns_cuda.launches
+    row = {"phase": "dse", "shards": shards, "extend": extend,
+           "probe_only": {"rc": rc_probe, "cells": 8, "sweep_launches": probe_launches,
+                          "seconds": probe_s},
+           "calibrate": {"rc": rc_cal, "sweep_launches": cal_launches, "seconds": cal_s,
+                         "drifted_x1.8_rc": rc_drift},
+           "placement": {"rc": rc_place, "sweep_launches": place_launches,
+                         "seconds": place_s, "payload_equal_swarm": place_equal},
+           "sharded_sweeps": sharded, "sweep_launches": launches}
+    emit(row)
+    if not (shards_ok and extend_ok and rc_probe == 0 and rc_cal == 0 and rc_drift != 0
+            and rc_place == 0 and place_equal
+            and all(not r["differ"] and r["launches"] == r["graphs"] * r["shards"]
+                    for r in sharded)):
+        raise AssertionError(f"dse check failed: {row}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -2292,6 +2640,11 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # -- swarm placement and the dse CLI ---------------------------------------
+    swarm = placement_path(ROOT / "build" / "swarm", dev)
+    dse_launches = dse_path(built, traffic.ledger, swarm, (thermal, cm, t_grid),
+                            ROOT / "build" / "dse", dev)
+
     # -- phases 12-17: the xLSTM path: mLSTM kernel, serving, checks, trace ---
     mlstm_err = mlstm_kernel_checks(dev)
     xcfg = get_config(XLSTM_ARCH)
@@ -2346,10 +2699,12 @@ def main() -> int:
         "name": "partition_sweep", "route": "cuda",
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
-        "launches": launches["partition_sweep"] + plan_launches + calibration_launches,
+        "launches": (launches["partition_sweep"] + plan_launches + calibration_launches
+                     + swarm["launches"] + dse_launches),
         "launches_by_path": {"headcount": launches["partition_sweep"],
                              "plan_table": plan_launches,
-                             "calibration": calibration_launches},
+                             "calibration": calibration_launches,
+                             "placement": swarm["launches"], "dse": dse_launches},
         "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],

@@ -20,6 +20,17 @@ plain version on the CPU, ``"scan-cpu"`` the dense sweep there,
 ``backend="numpy"`` the oracle DP. All are bitwise equal (the dense sweep
 to ~ulp on graphs with more than eight reads in one task).
 
+The Q grid splits into chunks over torch devices, and a placement spec cuts
+the chain across N harvesting nodes, sweeping link bandwidth × node memory ×
+node budget in one call (``auto`` is the torch grid solver on the card)::
+
+    solve(PartitionSpec(graph=g, cost=cm, q_grid=(1e-3, 5e-3, None),
+                        sharding=QGridSharding(n_shards=2)))
+    sol = solve(PartitionSpec(graph=g, cost=cm, placement=PlacementSpec(
+        nodes=3, links=tuple(LinkModel(bandwidth_mbps=b)
+                             for b in range(900, 3400, 100)))))
+    sol.placement_plan(link_index=0).summary()
+
 A measured calibration prices the solve instead of the analytical model::
 
     table = MeasuredCostTable.from_ledger(report.ledger, kind="time")
@@ -44,6 +55,7 @@ from .core.engine import (
     EngineError,
     ExportMismatch,
     PartitionSpec,
+    QGridSharding,
     Solution,
     SpecError,
     UnsupportedObjective,
@@ -54,6 +66,15 @@ from .core.engine import (
     register_backend,
 )
 from .core.partition import Infeasible
+from .core.placement import (
+    LinkModel,
+    NodeSpec,
+    PlacementError,
+    PlacementPlan,
+    PlacementSpec,
+    PlacementSweep,
+    PlacementTable,
+)
 
 __all__ = [
     "OBJECTIVES",
@@ -63,8 +84,16 @@ __all__ = [
     "EngineError",
     "ExportMismatch",
     "Infeasible",
+    "LinkModel",
     "MeasuredCostTable",
+    "NodeSpec",
     "PartitionSpec",
+    "PlacementError",
+    "PlacementPlan",
+    "PlacementSpec",
+    "PlacementSweep",
+    "PlacementTable",
+    "QGridSharding",
     "Solution",
     "SpecError",
     "UnsupportedObjective",

@@ -10,9 +10,13 @@ The port's copy of ``repro/core/engine.py``. Callers build one immutable
   Q_max grid), ``"minimax"`` (§4.4 storage minimization, Q_min) or
   ``"exact_k"`` (the fixed-burst-count DP);
 * **where** to solve it: ``backend="numpy" | "torch" | "cuda" | "scan" |
-  "scan-cpu" | "auto"``;
+  "scan-cpu" | "auto"``, and an optional :class:`QGridSharding` splitting
+  the Q grid into chunks over torch devices;
 * **at what price**: ``cost=`` a :class:`~.cost.CostModel`, or a
-  :class:`~.calibration.MeasuredCostTable` priced at ``confidence=``
+  :class:`~.calibration.MeasuredCostTable` priced at ``confidence=``;
+* **across how many nodes**: ``placement=`` a
+  :class:`~.placement.PlacementSpec` (a relay chain of harvesting nodes and
+  its link × memory × Q grid)
 
 — and :meth:`Engine.solve` resolves it through a backend *registry*.
 ``numpy`` is the oracle DP of :mod:`.partition`; ``cuda`` runs the CSR
@@ -30,9 +34,12 @@ solved group by group. Mismatches raise typed errors:
 :class:`ExportMismatch` for a layout a backend cannot consume,
 :class:`UnsupportedObjective` for an objective it does not implement.
 
-The reference's ``sharding=``, ``placement=`` and ``interpret=`` have no
-counterpart in the port yet; a spec that sets one raises :class:`SpecError`
-naming the ROADMAP item that brings it.
+Placement solves run on ``numpy`` (the oracle), ``scan`` (the torch grid
+solver of :mod:`.placement_torch` on the card) and ``scan-cpu``; ``auto``
+picks ``scan``. Q-grid sharding runs on ``cuda``, ``torch``, ``scan`` and
+``scan-cpu``, bitwise equal to the unsharded solve. The reference's
+``interpret=`` (the Pallas kernel's mode) has no counterpart: a spec that
+sets it raises :class:`SpecError`.
 
 Most callers go through :mod:`repro_torch.api`, which re-exports this
 module's public names and the :func:`~repro_torch.api.solve` convenience.
@@ -44,6 +51,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from ..obs.trace import PID_SOLVER, TRACER
 from . import partition_torch as pt
@@ -51,6 +59,7 @@ from .calibration import MeasuredCostTable, measured_default
 from .cost import CostModel
 from .graph import GraphArrays, GraphCSRArrays, TaskGraph
 from .partition import Infeasible, Partition
+from .placement import PlacementSpec, PlacementSweep
 
 __all__ = [
     "EngineError",
@@ -63,6 +72,7 @@ __all__ = [
     "backend_info",
     "export_kind",
     "resolve_auto_backend",
+    "QGridSharding",
     "PartitionSpec",
     "Solution",
     "Engine",
@@ -86,7 +96,7 @@ class EngineError(ValueError):
 
 class SpecError(EngineError):
     """Malformed or self-contradictory :class:`PartitionSpec`, or a field the
-    port does not implement yet."""
+    port does not implement."""
 
 
 class UnsupportedObjective(EngineError):
@@ -113,14 +123,18 @@ class BackendInfo:
     ``objectives`` is the set of :data:`OBJECTIVES` the backend implements;
     ``supports_csr`` / ``supports_dense`` declare that it consumes
     :class:`GraphCSRArrays` / :class:`GraphArrays` exports (every backend
-    accepts a :class:`TaskGraph`); ``auto_eligible`` marks the backends
-    ``backend="auto"`` may pick."""
+    accepts a :class:`TaskGraph`); ``supports_sharding`` gates
+    :class:`QGridSharding`, ``supports_placement`` the multi-node placement
+    axis; ``auto_eligible`` marks the backends ``backend="auto"`` may
+    pick."""
 
     name: str
     factory: Any
     objectives: frozenset
+    supports_sharding: bool = False
     supports_csr: bool = False
     supports_dense: bool = True
+    supports_placement: bool = False
     auto_eligible: bool = True
 
 
@@ -131,8 +145,10 @@ def register_backend(
     name: str,
     *,
     objectives: Sequence[str] = ("sum",),
+    supports_sharding: bool = False,
     supports_csr: bool = False,
     supports_dense: bool = True,
+    supports_placement: bool = False,
     auto_eligible: bool = True,
     registry: Optional[Dict[str, BackendInfo]] = None,
 ):
@@ -147,8 +163,10 @@ def register_backend(
             name=name,
             factory=cls,
             objectives=frozenset(objectives),
+            supports_sharding=supports_sharding,
             supports_csr=supports_csr,
             supports_dense=supports_dense,
+            supports_placement=supports_placement,
             auto_eligible=auto_eligible,
         )
         return cls
@@ -237,6 +255,31 @@ def resolve_auto_backend(
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class QGridSharding:
+    """Split the Q_max grid into ``n_shards`` contiguous chunks
+    (:func:`~.partition_torch.shard_q_grid`), each solved on its own device.
+
+    ``devices`` are torch devices (or their names); ``None`` solves every
+    chunk on the backend's own device. With fewer devices than chunks the
+    same chunks run one after another on the backend's device. Either way
+    the gathered tables are bitwise equal to the unsharded solve, since
+    every Q lane's DP is independent. Only ``objective="sum"`` has a Q grid
+    to shard; :class:`PartitionSpec` rejects sharding with
+    ``minimax``/``exact_k`` (:class:`SpecError`).
+    """
+
+    n_shards: int
+    devices: Optional[Tuple[Any, ...]] = None
+
+    def __post_init__(self):
+        if self.n_shards < 1:
+            raise SpecError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.devices is not None:
+            object.__setattr__(self, "devices",
+                               tuple(torch.device(d) for d in self.devices))
+
+
 class _Unset:
     """Sentinel distinguishing 'q_max not given' from 'q_max=None=unbounded'."""
 
@@ -246,11 +289,8 @@ class _Unset:
 
 _UNSET = _Unset()
 
-# Fields of the reference's spec that the port does not implement yet, and
-# the ROADMAP queue-1 item that brings each.
+# Fields of the reference's spec that the port does not implement, and why.
 _NOT_PORTED = {
-    "sharding": "Q-grid sharding is ROADMAP item 9 (sharded DSE)",
-    "placement": "swarm placement is ROADMAP item 8",
     "interpret": "interpret= is the Pallas kernel's mode; the port's kernels "
                  "are CUDA (pick backend='torch' for the plain version)",
 }
@@ -285,9 +325,18 @@ class PartitionSpec:
     level in (0, 1)): every cut at measured mean + z·sigma;
     ``confidence=None`` prices at the plain mean, which is the analytical
     model itself when the measurements match it. ``backend`` names a
-    registered backend or ``"auto"``. ``sharding``, ``placement`` and
-    ``interpret`` exist so that a spec written for the reference fails
-    loudly here: any value but ``None`` raises :class:`SpecError`.
+    registered backend or ``"auto"``; ``sharding`` splits the Q grid into
+    chunks over torch devices. ``interpret`` exists so that a spec written
+    for the reference fails loudly here: any value but ``None`` raises
+    :class:`SpecError`.
+
+    ``placement`` adds the multi-node axis: a
+    :class:`~repro_torch.core.placement.PlacementSpec` describing a relay
+    chain of harvesting nodes plus the link-bandwidth / memory / Q sweep
+    grids. Placement solves carry their own budget axes, so ``q_grid=`` /
+    ``q_max=`` / ``sharding=`` are rejected alongside it, the objective must
+    stay ``"sum"``, and inputs must be :class:`TaskGraph` objects (the
+    per-node column sweeps walk the graph structure).
     """
 
     graph: Optional[AnyExport] = None
@@ -303,10 +352,10 @@ class PartitionSpec:
     n_bursts: Optional[int] = None
     k_objective: str = "sum"
     backend: str = "auto"
-    sharding: Any = None
+    sharding: Optional[QGridSharding] = None
     interpret: Any = None
     confidence: Any = None
-    placement: Any = None
+    placement: Optional[PlacementSpec] = None
 
     def __post_init__(self):
         for name, why in _NOT_PORTED.items():
@@ -366,6 +415,18 @@ class PartitionSpec:
             raise SpecError(
                 f"k_objective must be 'sum' or 'max', got {self.k_objective!r}"
             )
+        if self.sharding is not None:
+            if not isinstance(self.sharding, QGridSharding):
+                raise SpecError(
+                    f"sharding= must be a QGridSharding, got "
+                    f"{type(self.sharding).__name__}"
+                )
+            if self.objective != "sum":
+                raise SpecError(
+                    f"sharding shards the Q grid, which only objective='sum' "
+                    f"has; objective={self.objective!r} solves per graph — "
+                    f"drop sharding="
+                )
         if not isinstance(self.backend, str):
             raise SpecError(f"backend= must be a name, got {self.backend!r}")
         if self.cost is not None and not isinstance(
@@ -374,6 +435,29 @@ class PartitionSpec:
                 f"cost= must be a CostModel or a MeasuredCostTable, got "
                 f"{type(self.cost).__name__}"
             )
+        if self.placement is not None:
+            if not isinstance(self.placement, PlacementSpec):
+                raise SpecError(
+                    f"placement= must be a PlacementSpec, got "
+                    f"{type(self.placement).__name__}"
+                )
+            if self.objective != "sum":
+                raise SpecError(
+                    f"placement= solves the multi-node E_total DP, which "
+                    f"rides objective='sum'; objective={self.objective!r} has "
+                    f"no placement form"
+                )
+            if self.q_grid is not None or self.q_max is not _UNSET:
+                raise SpecError(
+                    "placement= sweeps per-node budgets via "
+                    "PlacementSpec.q_scales (each node's q_max × the scale "
+                    "grid); drop q_grid=/q_max="
+                )
+            if self.sharding is not None:
+                raise SpecError(
+                    "placement= has no Q grid to shard (its grid axes are "
+                    "links × memory_scales × q_scales); drop sharding="
+                )
         if self.confidence is not None:
             try:
                 c = float(self.confidence)
@@ -428,6 +512,7 @@ class Solution:
     sweeps: Optional[Tuple[pt.TorchSweep, ...]] = None   # sum
     parts: Optional[Tuple[Tuple[Partition, ...], ...]] = None  # exact_k
     qmins: Optional[Tuple[float, ...]] = None           # minimax
+    placements: Optional[Tuple[PlacementSweep, ...]] = None  # placement=
 
     @property
     def n_graphs(self) -> int:
@@ -483,6 +568,27 @@ class Solution:
             )
         return p
 
+    def placement_sweep(self, graph_index: int = 0) -> PlacementSweep:
+        """The solved :class:`~repro_torch.core.placement.PlacementSweep`
+        for one graph (specs with ``placement=``): the full links × memory ×
+        Q grid plus the raw DP tables."""
+        return self._one(self.placements, "placement sweeps")[graph_index]
+
+    def placement_plan(
+        self,
+        graph_index: int = 0,
+        link_index: int = 0,
+        memory_index: int = 0,
+        q_index: int = 0,
+    ):
+        """One grid cell materialized as a
+        :class:`~repro_torch.core.placement.PlacementPlan`; raises
+        :class:`~repro_torch.core.placement.PlacementError` where
+        infeasible."""
+        return self.placement_sweep(graph_index).plan(
+            link_index, memory_index, q_index
+        )
+
     def q_min(self, graph_index: int = 0) -> float:
         """The §4.4 storage minimum for one graph (objective='minimax')."""
         return self._one(self.qmins, "Q_min values")[graph_index]
@@ -520,6 +626,20 @@ class _SolveRequest:
     objective: str
     n_bursts: Optional[int]
     k_objective: str
+    sharding: Optional[QGridSharding] = None
+    placement: Optional[PlacementSpec] = None
+
+
+def _chunk_devices(sharding: QGridSharding, device: str):
+    """The sharding's devices for a backend running on ``device``: they must
+    be of its type (a CPU backend stays on the CPU)."""
+    devices = sharding.devices
+    if devices is not None and any(d.type != device for d in devices):
+        raise SpecError(
+            f"sharding devices {[str(d) for d in devices]} do not match the "
+            f"backend's device type {device!r}"
+        )
+    return devices
 
 
 @register_backend(
@@ -527,6 +647,7 @@ class _SolveRequest:
     objectives=OBJECTIVES,
     supports_csr=False,          # the oracle DP walks the TaskGraph itself
     supports_dense=False,
+    supports_placement=True,
     auto_eligible=False,
 )
 class NumpyBackend:
@@ -541,6 +662,12 @@ class NumpyBackend:
     def solve(self, req: _SolveRequest) -> dict:
         from .partition import _optimal_k, _optimal_multi, q_min
 
+        if req.placement is not None:
+            from .placement import solve_placement_numpy
+
+            return {"placements": tuple(
+                solve_placement_numpy(g, req.cost, req.placement) for g in req.graphs
+            )}
         if req.objective == "sum":
             sweeps = []
             for g in req.graphs:
@@ -567,6 +694,10 @@ class _SweepBackend:
 
     def solve(self, req: _SolveRequest) -> dict:
         dev = self.device
+        if req.objective == "sum" and req.sharding is not None:
+            return {"sweeps": tuple(pt.sweep_sharded(
+                req.graphs, req.cost, req.q_values, n_shards=req.sharding.n_shards,
+                devices=_chunk_devices(req.sharding, dev), device=dev))}
         if req.objective == "sum":
             return {"sweeps": tuple(
                 pt.sweep(g, req.cost, req.q_values, device=dev) for g in req.graphs
@@ -584,8 +715,8 @@ class _SweepBackend:
         }
 
 
-@register_backend("torch", objectives=OBJECTIVES, supports_csr=True,
-                  supports_dense=False, auto_eligible=False)
+@register_backend("torch", objectives=OBJECTIVES, supports_sharding=True,
+                  supports_csr=True, supports_dense=False, auto_eligible=False)
 class TorchBackend(_SweepBackend):
     """The sweep's plain PyTorch version on the CPU: bitwise equal to the
     kernel and to the numpy oracles (tests, ``--device cpu``)."""
@@ -594,8 +725,8 @@ class TorchBackend(_SweepBackend):
     device = "cpu"
 
 
-@register_backend("cuda", objectives=OBJECTIVES, supports_csr=True,
-                  supports_dense=False)
+@register_backend("cuda", objectives=OBJECTIVES, supports_sharding=True,
+                  supports_csr=True, supports_dense=False)
 class CudaBackend(_SweepBackend):
     """The CSR sweep kernel (``kernels/partition_sweep/csrc``) on the card;
     raises without one."""
@@ -606,12 +737,24 @@ class CudaBackend(_SweepBackend):
 
 class _DenseBackend:
     """The dense sweep of :mod:`.partition_torch` on ``device``: a ``sum``
-    batch in one padded pass, minimax and exact-K per graph."""
+    batch in one padded pass (one per Q chunk when sharded), minimax and
+    exact-K per graph; placement grids on :mod:`.placement_torch`."""
 
     device = "cpu"
 
     def solve(self, req: _SolveRequest) -> dict:
+        from .placement_torch import solve_placement_torch
+
         dev = self.device
+        if req.placement is not None:
+            return {"placements": tuple(
+                solve_placement_torch(g, req.cost, req.placement, device=dev)
+                for g in req.graphs
+            )}
+        if req.objective == "sum" and req.sharding is not None:
+            return {"sweeps": tuple(pt.sweep_sharded(
+                req.graphs, req.cost, req.q_values, n_shards=req.sharding.n_shards,
+                devices=_chunk_devices(req.sharding, dev), dense=True, device=dev))}
         if req.objective == "sum":
             return {"sweeps": tuple(pt.sweep_dense(req.graphs, req.cost, req.q_values,
                                                    device=dev))}
@@ -627,17 +770,18 @@ class _DenseBackend:
         }
 
 
-@register_backend("scan", objectives=OBJECTIVES, supports_dense=True)
+@register_backend("scan", objectives=OBJECTIVES, supports_sharding=True,
+                  supports_dense=True, supports_placement=True)
 class ScanBackend(_DenseBackend):
-    """The dense sweep on the card (the reference's ``lax.scan`` engine);
-    raises without one."""
+    """The dense sweep and the placement grid solver on the card (the
+    reference's ``lax.scan`` engines); raises without one."""
 
     name = "scan"
     device = "cuda"
 
 
-@register_backend("scan-cpu", objectives=OBJECTIVES, supports_dense=True,
-                  auto_eligible=False)
+@register_backend("scan-cpu", objectives=OBJECTIVES, supports_sharding=True,
+                  supports_dense=True, supports_placement=True, auto_eligible=False)
 class ScanCpuBackend(_DenseBackend):
     """The dense sweep on the CPU (tests, ``--device cpu``): the same code
     as ``scan``."""
@@ -710,12 +854,23 @@ class Engine:
         self, spec: PartitionSpec, graphs: Sequence[AnyExport]
     ) -> Tuple[str, List[str]]:
         """(label, one backend name per graph): the named backend for every
-        graph, or for ``"auto"`` :func:`resolve_auto_backend` per graph.
-        ``label`` is the Solution's backend: one name, or ``"a+b"`` for a
-        mixed batch."""
+        graph, or for ``"auto"`` :func:`resolve_auto_backend` per graph — a
+        placement spec the first auto-eligible backend with
+        ``supports_placement`` (``scan``). ``label`` is the Solution's
+        backend: one name, or ``"a+b"`` for a mixed batch."""
         if spec.backend != "auto":
             info = backend_info(spec.backend, self._registry)
             return info.name, [info.name] * len(graphs)
+        if spec.placement is not None:
+            cands = [b.name for b in self._registry.values()
+                     if b.auto_eligible and b.supports_placement]
+            if not cands:
+                raise SpecError(
+                    "no registered auto-eligible backend supports placement "
+                    "solves; pass backend='numpy' or register one with "
+                    "supports_placement"
+                )
+            return cands[0], [cands[0]] * len(graphs)
         per_graph = [resolve_auto_backend(g, spec.objective, self._registry)
                      for g in graphs]
         return "+".join(sorted(set(per_graph))), per_graph
@@ -738,7 +893,25 @@ class Engine:
                     f"backends implementing it: "
                     f"{sorted(b.name for b in self._registry.values() if spec.objective in b.objectives)}"
                 )
+            if spec.sharding is not None and not info.supports_sharding:
+                raise SpecError(
+                    f"backend {info.name!r} does not support Q-grid sharding; "
+                    f"backends with supports_sharding: "
+                    f"{sorted(b.name for b in self._registry.values() if b.supports_sharding)}"
+                )
+            if spec.placement is not None and not info.supports_placement:
+                raise SpecError(
+                    f"backend {info.name!r} does not implement placement "
+                    f"solves; backends with supports_placement: "
+                    f"{sorted(b.name for b in self._registry.values() if b.supports_placement)}"
+                )
         for g, name in zip(graphs, per_graph):
+            if spec.placement is not None and not isinstance(g, TaskGraph):
+                raise ExportMismatch(
+                    "placement= needs the TaskGraph (the per-node column "
+                    "sweeps walk its structure); pass the graph rather than a "
+                    "pre-exported layout"
+                )
             if spec.objective == "exact_k" and not isinstance(g, TaskGraph):
                 # reconstructed bursts are priced on the graph
                 raise ExportMismatch(
@@ -779,6 +952,8 @@ class Engine:
                 objective=spec.objective,
                 n_bursts=spec.n_bursts,
                 k_objective=spec.k_objective,
+                sharding=spec.sharding,
+                placement=spec.placement,
             )
             payload = backend_info(name, self._registry).factory().solve(req)
             for key, vals in payload.items():

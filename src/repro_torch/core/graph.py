@@ -46,6 +46,7 @@ class Packet:
     c0_weight: float = 1.0
     keep: bool = False          # application output: must survive the last burst
     external: bool = False      # present in NVM before the application starts
+    meta: Any = None            # optional payload (e.g. a profiled layer's name)
 
     def __post_init__(self) -> None:
         if self.nbytes < 0:

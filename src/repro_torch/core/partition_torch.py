@@ -21,6 +21,13 @@ The counterpart of ``repro/core/partition_jax.py``, both halves:
 
 In both, the column tables come back to the host, where the parent walk and
 the burst pricing run in numpy float64 as in the reference.
+
+**Q-grid sharding** (the reference's ``shard_q_grid`` and
+``_sweep_jax_sharded``): :func:`sweep_sharded` splits the Q grid into
+contiguous chunks (:func:`shard_q_grid`) and solves each on its own device,
+or one after another on one device when there are fewer devices than
+chunks. Each Q lane's DP reads only its own lane, so the gathered tables are
+bitwise equal to the unsharded solve on either engine.
 """
 
 from __future__ import annotations
@@ -47,6 +54,8 @@ __all__ = [
     "sweep_dense",
     "q_min_dense",
     "exact_k_partition_dense",
+    "shard_q_grid",
+    "sweep_sharded",
 ]
 
 AnyExport = Union[TaskGraph, GraphArrays, GraphCSRArrays]
@@ -419,3 +428,74 @@ def exact_k_partition_dense(
         raise ValueError(f"objective must be 'sum' or 'max', got {objective!r}")
     vals, bsts = _exactk_sweep(graph, cost, int(n_bursts), q_max, objective, dev)
     return _k_partition(graph, cost, n_bursts, q_max, vals, bsts)
+
+
+# ---------------------------------------------------------------------------
+# Q-grid sharding
+# ---------------------------------------------------------------------------
+
+
+def shard_q_grid(n_q: int, n_shards: int) -> List[Tuple[int, int]]:
+    """Balanced contiguous ``[start, stop)`` chunks covering ``range(n_q)``.
+
+    The first ``n_q % n_shards`` chunks are one element longer; ``n_shards``
+    is clamped so every chunk is non-empty.
+    """
+    if n_q < 1:
+        raise ValueError("shard_q_grid needs at least one Q point")
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    n_shards = min(n_shards, n_q)
+    base, rem = divmod(n_q, n_shards)
+    edges = [0]
+    for s in range(n_shards):
+        edges.append(edges[-1] + base + (1 if s < rem else 0))
+    return list(zip(edges[:-1], edges[1:]))
+
+
+def _merge_sweeps(q_values: Sequence[Optional[float]],
+                  chunk_sweeps: Sequence[Sequence[TorchSweep]]) -> List[TorchSweep]:
+    """Concatenate per-chunk sweeps (chunk-major) back into full-grid ones."""
+    out: List[TorchSweep] = []
+    for g in range(len(chunk_sweeps[0])):
+        parts = [cs[g] for cs in chunk_sweeps]
+        out.append(TorchSweep(
+            n_tasks=parts[0].n_tasks,
+            q_values=list(q_values),
+            **{f: np.concatenate([getattr(p, f) for p in parts], axis=0)
+               for f in ("dp", "parent", "e_total", "feasible", "starts")},
+        ))
+    return out
+
+
+def sweep_sharded(
+    graphs: Sequence[AnyExport],
+    cost: CostModel,
+    q_values: Sequence[Optional[float]],
+    *,
+    n_shards: int,
+    devices: Optional[Sequence] = None,
+    dense: bool = False,
+    device="cuda",
+) -> List[TorchSweep]:
+    """Every graph's sweep over the Q grid, solved in :func:`shard_q_grid`
+    chunks: chunk ``s`` on ``devices[s]`` when there are as many devices as
+    chunks, else every chunk on ``device``, one after another. ``dense``
+    picks the dense sweep (one padded pass per chunk), else the sweep kernel
+    (one launch per graph and chunk). Bitwise equal to the unsharded
+    solve."""
+    if not graphs:
+        return []
+    chunks = shard_q_grid(len(q_values), n_shards)
+    if devices is not None and len(chunks) > 1 and len(devices) >= len(chunks):
+        devs = list(devices[: len(chunks)])
+    else:
+        devs = [device] * len(chunks)
+    qs = list(q_values)
+    per_chunk = []
+    for (lo, hi), dev in zip(chunks, devs):
+        if dense:
+            per_chunk.append(sweep_dense(graphs, cost, qs[lo:hi], device=dev))
+        else:
+            per_chunk.append([sweep(g, cost, qs[lo:hi], device=dev) for g in graphs])
+    return _merge_sweeps(q_values, per_chunk)

@@ -27,7 +27,10 @@ existing cell (the header's ``lineage`` records each step);
 and raises :class:`StaleTableError` on any bit mismatch. Tables are
 **canonical**: buckets sort by (batch, seq) and the Q grid ascending
 (unbounded last), so the same design-space set gives the same bytes however
-it was built. Sharded builds (``sharding=``) are ROADMAP item 9.
+it was built. ``build_plan_table(..., sharding=QGridSharding(...))`` and
+``extend_plan_table(..., n_shards=)`` split the Q grid into chunks over torch
+devices (one after another on one card); the gathered table's content is
+byte-identical to the unsharded build's.
 
 Bit-exactness: a lookup returns bounds and ``e_total`` bit-identical to a
 direct façade solve of the same (graph, cost, Q) on any backend.
@@ -49,7 +52,7 @@ from ..obs.metrics import METRICS
 from ..obs.trace import PID_SOLVER, TRACER
 from .burst import burst_cost
 from .cost import CostModel, cost_scalars
-from .engine import SpecError
+from .engine import QGridSharding, SpecError
 from .graph import TaskGraph
 from .layer_profile import default_cost_model, lower_config
 from .partition import BUDGET_ABS, BUDGET_REL, Infeasible
@@ -641,12 +644,14 @@ def _cache_lookup(cache_dir: Optional[str], fp: str, lineage: Sequence[str]):
 # ---------------------------------------------------------------------------
 
 
-def _facade_sweeps(graphs, cm, qs, backend):
-    """One batched façade solve returning a TorchSweep per graph."""
+def _facade_sweeps(graphs, cm, qs, backend, sharding=None):
+    """One batched (optionally Q-sharded) façade solve returning a
+    TorchSweep per graph."""
     from ..api import PartitionSpec, solve  # lazy: the façade imports this package
 
     sol = solve(PartitionSpec(
         graphs=tuple(graphs), cost=cm, q_grid=tuple(qs), backend=backend,
+        sharding=sharding,
     ))
     if sol.sweeps is None:
         raise PlanTableError(
@@ -665,7 +670,7 @@ def build_plan_table(
     backend: str = "auto",
     cache_dir: Optional[str] = None,
     graphs: Optional[Sequence[TaskGraph]] = None,
-    sharding=None,
+    sharding: Optional[QGridSharding] = None,
 ) -> PlanTable:
     """Offline build: lower every (batch, seq) bucket via
     :func:`lower_config` and solve the whole bucket × Q grid in one
@@ -683,14 +688,16 @@ def build_plan_table(
     derive the Q grid) skip the second lowering; identity is still pinned by
     the fingerprint over (cfg, buckets, kind). Buckets and Q values are
     stored in canonical sorted order regardless of call order.
-    ``sharding`` must be None: sharded builds are ROADMAP item 9.
+    ``sharding`` (a :class:`~.engine.QGridSharding`) splits the Q grid into
+    chunks over torch devices; the table is **byte-identical** to the
+    unsharded build of the same inputs, with the same fingerprint, and with
+    fewer devices than shards the chunks run one after another.
     """
     from ..configs import resolve_config
 
-    if sharding is not None:
+    if sharding is not None and not isinstance(sharding, QGridSharding):
         raise SpecError(
-            "sharding= is not supported by the port: Q-grid sharding is "
-            "ROADMAP item 9 (sharded DSE)"
+            f"sharding= must be a QGridSharding, got {type(sharding).__name__}"
         )
     cfg = resolve_config(cfg)
     buckets, qs, graphs = _canonical_grid(shape_buckets, q_values, graphs)
@@ -710,7 +717,7 @@ def build_plan_table(
             graphs = [
                 lower_config(cfg, batch=b, seq=s, kind=kind) for (b, s) in buckets
             ]
-        sweeps = _facade_sweeps(graphs, cm, qs, backend)
+        sweeps = _facade_sweeps(graphs, cm, qs, backend, sharding)
         table = _finish_table(
             cfg, kind, cm, fp, backend, buckets, qs,
             [g.n_tasks for g in graphs], _block_from_sweeps(graphs, cm, sweeps),
@@ -731,13 +738,16 @@ def extend_plan_table(
     cost: Optional[CostModel] = None,
     backend: str = "auto",
     cache_dir: Optional[str] = None,
+    n_shards: Optional[int] = None,
+    devices: Optional[Sequence] = None,
 ) -> PlanTable:
     """Incrementally extend a table with new buckets and/or Q points.
 
     Existing cells are **never re-solved**: their rows are byte-moved from
     ``base``, and only the new (bucket, Q) cells hit the engine — one
-    batched solve for new buckets over the final Q grid plus one for old
-    buckets over the new Q points. Additions already tabulated are
+    batched solve (Q-sharded over ``devices`` when ``n_shards`` is given)
+    for new buckets over the final Q grid plus one for old buckets over the
+    new Q points. Additions already tabulated are
     ignored, so re-extending an untouched base returns it unchanged with
     zero engine calls.
 
@@ -787,6 +797,7 @@ def extend_plan_table(
     if cached is not None:
         BUILD_STATS["cache_hits"] += 1
         return cached
+    sharding = None if n_shards is None else QGridSharding(int(n_shards), devices)
 
     def _solve(graphs, qs):
         # One span per engine call the extension actually makes (new-bucket
@@ -795,7 +806,7 @@ def extend_plan_table(
             "plan_table.extend", cat="plan_table", pid=PID_SOLVER,
             graphs=len(graphs), q_points=len(qs),
         ):
-            return _facade_sweeps(graphs, cm, qs, backend)
+            return _facade_sweeps(graphs, cm, qs, backend, sharding)
 
     new_buckets = sorted(new_buckets)
     new_b_index = {b: i for i, b in enumerate(new_buckets)}

@@ -30,8 +30,11 @@ builds the Q grid from the buckets' own Q_min .. E_total(whole-app) range
 (plus an unbounded entry), solves the whole grid through the façade — the
 sweep kernel on the card, or with ``--device cpu`` its plain version — and
 writes the versioned table; ``--probe K`` re-validates K random cells
-against the live engine after the build. ``--shards`` and ``--extend``
-(the reference's sharded DSE) are ROADMAP item 9.
+against the live engine after the build. ``--shards N`` splits the Q grid
+into N chunks (over N cards when the host has them, else one after another;
+the same bytes either way) and ``--extend`` adds the missing ``--buckets``
+to the table at ``--out`` without re-solving its cells
+(:func:`repro_torch.launch.dse.extend_for_arch`).
 """
 
 from __future__ import annotations
@@ -305,17 +308,26 @@ def build_table_for_arch(
     kind: str = "time",
     cache_dir: Optional[str] = None,
     backend: str = "auto",
+    n_shards: Optional[int] = None,
 ) -> PlanTable:
     """Convenience offline build: derive the Q grid from the buckets
     (:func:`derive_q_grid`) and solve the whole grid in one batched façade
-    call on ``backend`` (the sweep kernel on the card by default)."""
+    call on ``backend`` (the sweep kernel on the card by default) — or,
+    with ``n_shards``, one Q-sharded call
+    (``build_plan_table(..., sharding=QGridSharding(...))``; same bytes
+    either way)."""
     cfg = resolve_config(arch, smoke)
     cm = default_cost_model(kind)
     graphs = lower_buckets(cfg, shape_buckets, kind)
     qs = derive_q_grid(graphs, cm, n_q, backend=backend)
+    sharding = None
+    if n_shards is not None:
+        from ..api import QGridSharding
+
+        sharding = QGridSharding(n_shards, shard_devices_for(backend, n_shards))
     return build_plan_table(
         cfg, shape_buckets, qs, kind=kind, cost=cm, cache_dir=cache_dir,
-        graphs=graphs, backend=backend,
+        graphs=graphs, backend=backend, sharding=sharding,
     )
 
 
@@ -350,6 +362,16 @@ def _parse_buckets(text: str) -> List[Tuple[int, int]]:
 _BACKEND_OF_DEVICE = {"cuda": "cuda", "cpu": "torch"}
 
 
+def shard_devices_for(backend: str, n_shards: int):
+    """The Q shards' devices for a build on ``backend``: one card per shard
+    (:func:`repro_torch.launch.mesh.shard_devices`) for the card's backends,
+    None — the chunks one after another on the backend's own device — on a
+    host with fewer cards or for the CPU's backends."""
+    from .mesh import shard_devices
+
+    return None if backend in ("torch", "scan-cpu") else shard_devices(n_shards)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen3-4b")
@@ -357,10 +379,12 @@ def main(argv=None) -> int:
     # covers the serve CLI's default request (batch 4, 32 + 16 tokens)
     ap.add_argument("--buckets", default="2x24,2x48,4x48",
                     help="comma-separated BATCHxSEQ buckets, e.g. 2x24,4x48")
-    ap.add_argument("--q-points", type=int, default=16,
-                    help="geometric Q grid size (an unbounded point is added)")
-    ap.add_argument("--kind", choices=("time", "memory"), default="time",
-                    help="cost interpretation")
+    ap.add_argument("--q-points", type=int, default=None,
+                    help="geometric Q grid size, default 16 (an unbounded "
+                    "point is added; fresh builds only)")
+    ap.add_argument("--kind", choices=("time", "memory"), default=None,
+                    help="cost interpretation, default time (fresh builds "
+                    "only — an extension keeps the base table's kind)")
     ap.add_argument("--out", required=True, help="output .npz path")
     ap.add_argument("--full", action="store_true",
                     help="use the full config instead of the smoke config")
@@ -368,27 +392,41 @@ def main(argv=None) -> int:
                     help="cuda: the sweep kernel on the card; cpu: its plain "
                     "version on the host")
     ap.add_argument("--shards", type=int, default=None,
-                    help="not supported by the port (ROADMAP item 9)")
+                    help="shard the solve's Q grid into this many chunks, "
+                    "one per card when the host has that many (byte-identical "
+                    "to the unsharded build)")
     ap.add_argument("--extend", action="store_true",
-                    help="not supported by the port (ROADMAP item 9)")
+                    help="extend the existing table at --out with any "
+                    "missing --buckets instead of rebuilding it")
     ap.add_argument("--probe", type=int, default=0,
                     help="re-validate this many random cells against the "
                     "live engine after the build")
     args = ap.parse_args(argv)
-    if args.shards is not None or args.extend:
-        ap.error("--shards and --extend need the sharded DSE (launch/dse.py), "
-                 "which is ROADMAP item 9 and not ported yet")
 
     backend = _BACKEND_OF_DEVICE[args.device]
     buckets = _parse_buckets(args.buckets)
     t0 = time.time()
-    table = build_table_for_arch(
-        args.arch, buckets, args.q_points, smoke=not args.full,
-        kind=args.kind, backend=backend,
-    )
+    if args.extend:
+        if args.kind is not None or args.q_points is not None:
+            ap.error("--kind/--q-points are fixed by the base table; "
+                     "not valid with --extend")
+        from .dse import extend_for_arch  # lazy: dse imports this module
+
+        table = extend_for_arch(
+            args.out, args.arch, buckets, smoke=not args.full,
+            n_shards=args.shards, backend=backend,
+        )
+        verb = "extended"
+    else:
+        table = build_table_for_arch(
+            args.arch, buckets, args.q_points or 16, smoke=not args.full,
+            kind=args.kind or "time", backend=backend, n_shards=args.shards,
+        )
+        verb = "built"
     table.save(args.out)
-    print(f"[planner] built {table.summary()} in {time.time() - t0:.2f}s "
-          f"on {args.device} → {args.out}")
+    shard_note = "" if args.shards is None else f" ({args.shards} shards)"
+    print(f"[planner] {verb} {table.summary()} in {time.time() - t0:.2f}s"
+          f"{shard_note} on {args.device} → {args.out}")
     if args.probe:
         n = probe_plan_table(
             table, resolve_config(args.arch, smoke=not args.full), k=args.probe,

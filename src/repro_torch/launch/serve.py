@@ -24,9 +24,10 @@ one CUDA graph replay: captured once per parameters object after one eager
 step on a side stream, its cache, token and 0-d position tensor static
 inputs that each call copies into. On the CPU both are the eager
 functions. ``TRACE_COUNT`` counts builds and captures, never calls, as
-``repro``'s counts retraces. ``repro``'s ``launch/steps.py`` and
-``launch/mesh.py`` have no counterpart on one card: their sharding
-constraints are TPU mesh rules (ROADMAP.md queue 1, item 9).
+``repro``'s counts retraces. ``repro``'s ``launch/steps.py`` and the TPU
+mesh layouts of ``launch/mesh.py`` have no counterpart on one card: their
+sharding constraints are TPU mesh rules (the port's ``launch/mesh.py``
+keeps only the DSE's Q-shard devices).
 
 **Planned path.** With ``--plan-table`` the request is energy-bounded: its
 shape is bucketed into a :class:`repro_torch.core.plan_table.PlanTable` (an

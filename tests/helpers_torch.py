@@ -39,3 +39,27 @@ def port_of(g, cm):
     tasks = [dict(name=t.name, reads=t.reads, writes=t.writes, cost=t.cost)
              for t in g.tasks]
     return graph_from_description(packets, tasks), port_cost(cm)
+
+
+def port_placement_spec(spec):
+    """The reference's ``PlacementSpec`` as the port's: the same nodes (each
+    node cost model carried by ``port_cost``, one port model per reference
+    model), links, Q and memory scales."""
+    from repro_torch.core import placement as P
+
+    costs = {}
+
+    def cost_of(cm):
+        if cm is None:
+            return None
+        return costs.setdefault(id(cm), port_cost(cm))
+
+    nodes = tuple(P.NodeSpec(q_max=nd.q_max, memory_bytes=nd.memory_bytes,
+                             cost=cost_of(nd.cost), compute_scale=nd.compute_scale,
+                             name=nd.name) for nd in spec.nodes)
+    links = tuple(P.LinkModel(bandwidth_mbps=lk.bandwidth_mbps,
+                              energy_per_byte=lk.energy_per_byte,
+                              init_energy=lk.init_energy, rx_fraction=lk.rx_fraction,
+                              init_s=lk.init_s, name=lk.name) for lk in spec.links)
+    return P.PlacementSpec(nodes=nodes, links=links, q_scales=spec.q_scales,
+                           memory_scales=spec.memory_scales)

@@ -153,8 +153,8 @@ NAN = float("nan")
     (dict(k_objective="mean"), api.SpecError),
     (dict(backend=3), api.SpecError),
     (dict(cost=object()), api.SpecError),                      # not a CostModel
-    (dict(sharding=4), api.SpecError),                         # ROADMAP item 9
-    (dict(placement=object()), api.SpecError),                 # ROADMAP item 8
+    (dict(sharding=4), api.SpecError),                         # not a QGridSharding
+    (dict(placement=object()), api.SpecError),                 # not a PlacementSpec
     (dict(confidence=1.5), api.SpecError),                     # outside (0, 1)
     (dict(interpret=True), api.SpecError),
     (dict(config="qwen3-4b", shapes=()), api.SpecError),
@@ -173,10 +173,14 @@ def test_spec_errors(spec, err):
 
 
 def test_not_ported_fields_name_their_roadmap_item():
+    """``interpret=`` (the Pallas kernel's mode) is still refused, naming why;
+    ``sharding=`` and ``placement=`` are ported and reject a wrong type."""
     g, cm, _, _ = _family("random", 0)
     pg, pc = port_of(g, cm)
-    for field, item in (("sharding", "item 9"), ("placement", "item 8")):
-        with pytest.raises(api.SpecError, match=item):
+    with pytest.raises(api.SpecError, match="Pallas kernel's mode"):
+        api.PartitionSpec(graph=pg, cost=pc, interpret=True)
+    for field, cls in (("sharding", "QGridSharding"), ("placement", "PlacementSpec")):
+        with pytest.raises(api.SpecError, match=f"{field}= must be a {cls}"):
             api.PartitionSpec(graph=pg, cost=pc, **{field: 1})
 
 

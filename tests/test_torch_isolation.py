@@ -1,8 +1,9 @@
 """The port stands alone: no ``jax``, no ``repro``, and no silent CPU fallback.
 
 A fresh interpreter imports every ``repro_torch`` module and runs the
-head-count launcher on the CPU at a reduced size; afterwards neither ``jax``
-nor any ``repro`` module may be loaded. The same rule is checked statically
+head-count launcher on the CPU at a reduced size, the swarm CLI on the
+ns_mini fixture and ``dse --placement``; afterwards neither ``jax`` nor any
+``repro`` module may be loaded. The same rule is checked statically
 over the sources of the package and of ``chip_smoke.py``.
 """
 
@@ -31,15 +32,21 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-def test_subprocess_imports_and_runs_without_jax_or_repro():
+def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
     mods = list(_modules())
-    assert "repro_torch.launch.headcount" in mods
+    for m in ("launch.headcount", "core.placement", "core.placement_torch", "data.ns_optimizer",
+              "launch.swarm", "launch.dse", "launch.mesh"):
+        assert f"repro_torch.{m}" in mods
+    ns = ["--prof", "tests/fixtures/ns_mini/prof.csv", "--dep", "tests/fixtures/ns_mini/dep.csv"]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "from repro_torch.launch import headcount\n"
+        "from repro_torch.launch import dse, headcount, swarm\n"
         "rc = headcount.main(['--device', 'cpu', '--reduce', '128', '--spec', 'visual'])\n"
+        f"rc = rc or swarm.main({ns!r} + ['--device', 'cpu'])\n"
+        "rc = rc or dse.main(['--placement', '--device', 'cpu', '--out',\n"
+        f"                    {str(tmp_path / 'p.json')!r}])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('BAD', bad)\n"
         "sys.exit(rc if not bad else 3)\n"
@@ -50,6 +57,7 @@ def test_subprocess_imports_and_runs_without_jax_or_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     assert "BAD []" in out.stdout
     assert '"phase": "execute"' in out.stdout
+    assert "[swarm] ledger:" in out.stdout and "[dse] solved PlacementTable" in out.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],

@@ -230,7 +230,7 @@ def test_version_lookup_and_builder_errors(tmp_path):
         with pytest.raises(pt.PlanTableError):
             pt.build_plan_table(cfg, kw["shape_buckets"], kw["q_values"], cost=pc,
                                 backend="torch")
-    with pytest.raises(SpecError, match="item 9"):
+    with pytest.raises(SpecError, match="sharding= must be a QGridSharding"):
         pt.build_plan_table(cfg, [(1, 128)], qs, cost=pc, sharding=object())
 
 

@@ -29,7 +29,8 @@ from repro_torch.configs import get_config
 from repro_torch.core import offload, remat_policy
 from repro_torch.core.cost import cost_from_scalars
 from repro_torch.core.partition import Infeasible
-from repro_torch.core.plan_table import PlanTable, PlanTableError, UnknownBucketError
+from repro_torch.core.plan_table import (PlanTable, PlanTableError, UnknownBucketError,
+                                         build_plan_table)
 from repro_torch.launch import planner
 
 BUCKETS = [(1, 128), (4, 512), (8, 2048)]
@@ -160,10 +161,24 @@ def test_cli_builds_probes_and_saves_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--shards", "2"], ["--extend"]])
 def test_cli_refuses_sharded_dse(flag, tmp_path, capsys):
-    with pytest.raises(SystemExit) as e:
-        planner.main(["--out", str(tmp_path / "t.npz"), "--device", "cpu", *flag])
-    assert e.value.code == 2
-    assert "ROADMAP item 9" in capsys.readouterr().err
+    """``--shards 2`` and ``--extend`` (once refused) now build a table whose
+    content equals the unsharded build of the same buckets and Q grid."""
+    out = str(tmp_path / "t.npz")
+    if flag == ["--extend"]:
+        assert planner.main(["--out", out, "--device", "cpu", "--buckets", "2x24"]) == 0
+        qs = PlanTable.load(out).q_values()
+    else:
+        whole = str(tmp_path / "whole.npz")
+        assert planner.main(["--out", whole, "--device", "cpu"]) == 0
+        qs = PlanTable.load(whole).q_values()
+    assert planner.main(["--out", out, "--device", "cpu", *flag]) == 0
+    text = capsys.readouterr().out
+    assert ("extended" if flag == ["--extend"] else "(2 shards)") in text
+    got = PlanTable.load(out)
+    want = build_plan_table(planner.resolve_config("qwen3-4b"), [(2, 24), (2, 48), (4, 48)],
+                            qs, backend="torch")
+    assert got.content_digest() == want.content_digest()
+    assert got.buckets() == [(2, 24), (2, 48), (4, 48)]
 
 
 def test_cli_without_a_card_does_not_drop_to_the_cpu(tmp_path):
