@@ -80,7 +80,25 @@ version on the card, and drives the port's paths:
    drifted ×1.8 (refused), and ``--placement`` equal to the swarm phase's
    table for the same spec; sharded sweeps through the façade on the
    kernel, one-point chunks of qwen3-4b's grid and THERMAL's 96-lane grid
-   in 5 and in 96 chunks (other cluster layouts), bitwise equal.
+   in 5 and in 96 chunks (other cluster layouts), bitwise equal;
+12. the model zoo (``zoo``), every earlier model freed first: tinyllama-1.1b,
+   qwen1.5-0.5b, granite-moe-1b-a400m, llama-3.2-vision-11b (b4 × p512 ×
+   g16), whisper-large-v3 (b4 × p128 × g16 over 1500 audio frames),
+   phi3.5-moe-42b-a6.6b (16 of its 32 layers, b4 × p512 × g16) and
+   deepseek-coder-33b (b1 × p512 × g8), each served at full width with
+   random weights from seed 0 through ``serve`` and the graphed decode
+   (launches, one capture per request shape, the parameters held beside
+   ``param_count()``), the flash kernel held in every prefill cell (causal
+   self-attention, the vlm's cross-attention over 1601 vision tokens,
+   whisper's 1500 × 1500 encoder and its cross-attention), the kernel path
+   against the plain path within a limit derived from rounding with a
+   control that must exceed it (for the vlm and whisper also on a seeded
+   random stand-in with the vlm gates nonzero), the graphed decode bitwise
+   equal to eager, a warm request's prefill ms and decode ms/token, the
+   MoE models' dropped share and routing (kernel against plain path; the
+   card's against the CPU's), and one planned whisper request on a time
+   table the planner CLI builds on the sweep kernel, with one power
+   failure, its tokens equal to unplanned serving's.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -90,9 +108,12 @@ the rest of the repository beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
+import math
 import random
 import shutil
 import subprocess
@@ -527,6 +548,11 @@ FLASH_CASES = {
     "f32_serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.float32),
     "f32_hd64_tail": (1, 200, 200, 8, 2, 64, True, torch.float32),
     "f32_hd128_noncausal": (1, 40, 72, 4, 4, 128, False, torch.float32),
+    # the zoo's non-causal cells: llama-3.2-vision's cross-attention over
+    # 1601 vision tokens, whisper's encoder and its decoder's cross-attention
+    "vlm_cross_b4_s512_sk1601": (4, 512, 1601, 32, 8, 128, False, torch.bfloat16),
+    "whisper_encoder_b4_s1500": (4, 1500, 1500, 20, 20, 64, False, torch.bfloat16),
+    "whisper_cross_b4_s128_sk1500": (4, 128, 1500, 20, 20, 64, False, torch.bfloat16),
 }
 
 
@@ -605,7 +631,7 @@ def model_kernel_checks(dev):
           "tolerance": "repro's |Δ| ≤ tol·(1+|plain|) (rmsnorm 1e-2; flash 0.05 bf16, "
                        "2e-5 f32) and the rounding bounds: rmsnorm (d+32)·2^-23·|plain| "
                        "[+ (2^-7 + 2^-14)·|plain| in bf16] + 1e-6; bf16 flash "
-                       "2^-7·(|plain| + A) + 1e-6, A = plain on |v|"})
+                       "2^-7·|plain| + (2^-8 + Sk·2^-23)·A + 1e-6, A = plain on |v|"})
     return rms_err, flash_err
 
 
@@ -615,13 +641,16 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
     the graphed decode, count the launches (a replay adds the launches its
     graph holds) and the decode captures (one per request shape).
     ``want_params``: (param_count(), the parameter tensors' numel);
-    ``want_launches``: {kernel: launches over all the requests}."""
+    ``want_launches``: {kernel: launches over all the requests}. The
+    model's ``max_seq`` (whisper's decoder positions) is the longest
+    request's."""
     from repro_torch.launch.serve import TRACE_COUNT, serve
     from repro_torch.models import api
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, device=dev)
+    max_seq = max(p + g for _, p, g in requests)
+    params = api.init_params(cfg, seed=0, device=dev, max_seq=max_seq)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     emit({"phase": "serve_model", "arch": cfg.name, "layers": cfg.n_layers,
@@ -794,13 +823,15 @@ def serve_parity(cfg, params, dev):
 FLASH_FAULT = 2.0 ** -5  # the flash cells' control: plain o × (1 + 2^-5) past position 64
 
 
-def qwen_flash_cells(cfg, params, dev):
-    """Every flash cell of both qwen3-4b prefills at full width: q, k and v
-    of all 36 layers captured on the plain path, then the kernel against its
-    plain version on each, held to repro's 0.05 and to
+def flash_cells(cfg, params, dev, requests, extra=None):
+    """Every flash cell of ``cfg``'s prefills of ``requests`` (batch,
+    prompt, generated tokens) at full width: q, k and v of every attention
+    captured on the plain path (self-attention, and the vlm's and whisper's
+    non-causal cells: cross-attention, whisper's encoder), then the kernel
+    against its plain version on each, held to repro's 0.05 and to
     :func:`flash_bound`. A control, the plain output × (1 + 2^-5) past
-    position 64 (rounded to bfloat16), must exceed the bound in every
-    cell."""
+    position 64 (rounded to bfloat16), must exceed the bound in every cell.
+    ``extra(b)``: the prefill's stand-ins beside the tokens."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
     from repro_torch.kernels.flash_attention.ops import to_bkv
     from repro_torch.kernels.flash_attention.ref import attention_plain, flash_bound
@@ -808,18 +839,20 @@ def qwen_flash_cells(cfg, params, dev):
     from repro_torch.models.common import PLAIN
 
     out = []
-    for b, p, g in SERVE_REQUESTS:
+    for b, p, g in requests:
         captured = []
 
         def capture(q, k, v, causal):
             captured.append((q, k, v, causal))
             return PLAIN.attention(q, k, v, causal)
 
-        api.prefill(cfg, params, {"tokens": _tokens(cfg, b, p, dev, 23 + b)}, p + g,
-                    dataclasses.replace(PLAIN, attention=capture))
-        shares, faults = [], []
+        batch = {"tokens": _tokens(cfg, b, p, dev, 23 + b), **(extra(b) if extra else {})}
+        api.prefill(cfg, params, batch, p + g, dataclasses.replace(PLAIN, attention=capture))
+        shares, faults, kinds = [], [], {}
         while captured:
             q, k, v, causal = captured.pop(0)
+            kind = f"{'causal' if causal else 'noncausal'} sq{q.shape[1]} sk{k.shape[1]}"
+            kinds[kind] = kinds.get(kind, 0) + 1
             qg, kg, vg = to_bkv(q, k, v)
             got = flash_attention_bkv_cuda(qg, kg, vg, causal=causal)
             torch.cuda.synchronize()
@@ -827,21 +860,23 @@ def qwen_flash_cells(cfg, params, dev):
             _held(got, want, FLASH_TOL[torch.bfloat16] * (1 + want.float().abs()))
             bound = flash_bound(qg, kg, vg, want, causal)
             shares.append(_held(got, want, bound)[1])
+            first = min(64, q.shape[1] // 2)  # a cell shorter than 128: past its middle
             bad = want.to(torch.float32)
-            bad[:, 64:] *= 1.0 + FLASH_FAULT
+            bad[:, first:] *= 1.0 + FLASH_FAULT
             bad = bad.to(want.dtype).to(torch.float32)
-            faults.append(float(((bad - want.to(torch.float32)).abs() / bound)[:, 64:].max()))
+            faults.append(float(((bad - want.to(torch.float32)).abs() / bound)[:, first:].max()))
             del q, k, v, qg, kg, vg, got, want, bound, bad
-        out.append({"batch": b, "prompt": p, "cells": len(shares),
+        out.append({"batch": b, "prompt": p, "cells": len(shares), "cells_by_kind": kinds,
                     "largest_share_of_bound": max(shares), "share_by_cell": shares,
                     "control_smallest_share": min(faults), "control_share_by_cell": faults})
-    emit({"phase": "qwen_flash_cells_vs_plain", "requests": out,
+    emit({"phase": "flash_cells_vs_plain", "arch": cfg.name, "requests": out,
           "cells": sum(r["cells"] for r in out),
-          "bound": "bf16 flash 2^-7·(|plain| + A) + 1e-6, A = plain on |v|; and repro's "
+          "bound": "bf16 flash 2^-7·|plain| + (2^-8 + Sk·2^-23)·A + 1e-6, A = plain on |v|; and repro's "
                    "0.05·(1 + |plain|)",
           "control": "plain o x (1 + 2^-5) past position 64 must use more than the whole "
                      "bound in every cell"})
-    if [r["cells"] for r in out] != [cfg.n_layers] * len(SERVE_REQUESTS):
+    want_cells = step_launches(cfg)[0]["flash_attention"]
+    if [r["cells"] for r in out] != [want_cells] * len(requests):
         raise AssertionError(f"captured {[r['cells'] for r in out]} flash cells")
     blind = [r["control_smallest_share"] for r in out if r["control_smallest_share"] <= 1.0]
     if blind:
@@ -873,24 +908,28 @@ def serve_trace(cfg, params, dev, request=SERVE_REQUESTS[0]):
     """Where serving time goes: host clock of a warm prefill of ``request``
     (batch, prompt, generated tokens) and of one decode step after it,
     untraced; then the card's busy time and its largest kernels from a
-    traced run of each."""
+    traced run of each. Returns the prefill's reading."""
+    from repro_torch.launch import serve as S
     from repro_torch.models import api
 
     b, p, g = request
     gen = torch.Generator(device=dev).manual_seed(11)
     tokens = torch.randint(0, cfg.vocab, (b, p), device=dev, generator=gen)
+    inputs = S._pre_batch(cfg, tokens)
     state = {}
 
     def prefill():
-        state["logits"], state["cache"] = api.prefill(cfg, params, {"tokens": tokens}, p + g)
+        state["logits"], state["cache"] = api.prefill(cfg, params, inputs, p + g)
 
     def decode():
         tok = state["logits"][:, -1].argmax(dim=-1, keepdim=True)
         api.decode_step(cfg, params, state["cache"], tok, p)
 
-    emit({"phase": "serve_trace", "arch": cfg.name,
-          "what": f"warm prefill b{b} x {p} and one decode step",
-          "prefill": one_call(prefill), "decode_step": one_call(decode)})
+    row = {"phase": "serve_trace", "arch": cfg.name,
+           "what": f"warm prefill b{b} x {p} and one decode step",
+           "prefill": one_call(prefill), "decode_step": one_call(decode)}
+    emit(row)
+    return row["prefill"]
 
 
 # -- the xLSTM serving path -----------------------------------------------------
@@ -1366,15 +1405,18 @@ def rmsnorm_entry(dev, launches, errs):
 
 
 def flash_entry(dev, launches, errs):
-    """Times and bounds of the flash kernel at the two prefill shapes; the
-    headline numbers are the b4 × 512 request's."""
+    """Times and bounds of the flash kernel at qwen3-4b's two prefill shapes
+    and the zoo's non-causal ones (llama-3.2-vision's cross-attention,
+    whisper's encoder); the headline numbers are qwen3-4b's b4 × 512
+    request's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     by_shape = {}
-    for name in ("serve_b4_s512", "serve_b1_s1000"):
+    for name in ("serve_b4_s512", "serve_b1_s1000", "vlm_cross_b4_s512_sk1601",
+                 "whisper_encoder_b4_s1500"):
         b, sq, sk, h, kv, hd, causal, _ = FLASH_CASES[name]
         q, k, v = flash_inputs(FLASH_CASES[name], dev)
         fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=causal)  # noqa: E731
@@ -1408,7 +1450,8 @@ def flash_entry(dev, launches, errs):
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "library_call": "scaled_dot_product_attention(enable_gqa=True), [B, H, S, hd]",
-        "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000 below",
+        "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000, the vlm cross "
+                 "and whisper encoder shapes below",
         "by_shape": by_shape,
     }
 
@@ -1560,16 +1603,23 @@ def serving_launches() -> dict:
 
 def step_launches(cfg) -> tuple:
     """({kernel: launches} of one prefill, of one decode step) of ``cfg``:
-    one RMSNorm launch per norm site (a step's and a prefill's alike), one
-    flash launch per attention layer or one mLSTM launch per mLSTM block a
-    prefill."""
+    one RMSNorm launch per norm site (a step's and a prefill's alike: ln1,
+    ln2, q- and k-norm of a self layer, the norm of a vlm cross layer, the
+    final norm; whisper's LayerNorms are plain), one flash launch per
+    attention a prefill (whisper: encoder, decoder self and cross), or one
+    mLSTM launch per mLSTM block a prefill."""
     if cfg.family == "ssm":
         norms = cfg.n_layers + 1
         pre = {"flash_attention": 0,
                "mlstm_chunk": cfg.n_layers - cfg.n_layers // cfg.slstm_every}
+    elif cfg.family == "encdec":
+        norms = 0
+        pre = {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers, "mlstm_chunk": 0}
     else:
-        norms = 4 * cfg.n_layers + 1
-        pre = {"flash_attention": cfg.n_layers, "mlstm_chunk": 0}
+        n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" else 0
+        n_self = cfg.n_layers - n_cross
+        norms = (4 if cfg.qk_norm else 2) * n_self + n_cross + 1
+        pre = {"flash_attention": n_self + n_cross, "mlstm_chunk": 0}
     return ({"rmsnorm": norms, **pre},
             {"rmsnorm": norms, "flash_attention": 0, "mlstm_chunk": 0})
 
@@ -1578,21 +1628,21 @@ def serve_step_graphs(cfg, params, dev, request):
     """The unplanned path's graphed decode (``_step_fns``, captured by
     serve_path) against the eager masked decode on one request in one
     process: the eager path is fed the graph path's tokens; each step's
-    logits must be bitwise equal, or else within one bf16 step of the
-    step's largest logit (cuBLAS may pick another algorithm under capture),
-    and argmax to the same token. Two requests through the graph add no
-    capture. Prints decode ms/token (host clock) and one step of each path
-    (host clock, the card's busy time, idle share)."""
+    logits must be bitwise equal and argmax to the same token. Two requests
+    through the graph add no capture. Prints decode ms/token (host clock)
+    and one step of each path (host clock, the card's busy time, idle
+    share)."""
     from repro_torch.launch import serve as S
     from repro_torch.models import api
 
     b, p, g = request
     prompts = S._prompts(cfg, b, p, 0, dev)
+    inputs = S._pre_batch(cfg, prompts)
     prefill, decode = S._step_fns(cfg.name, False, b, p + g, dev, donate=True)
     trace0 = dict(S.TRACE_COUNT)
 
     def graphed():
-        logits, cache = prefill(params, {"tokens": prompts})
+        logits, cache = prefill(params, inputs)
         toks, steps = [S._argmax_token(logits)], []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1607,7 +1657,7 @@ def serve_step_graphs(cfg, params, dev, request):
     toks2, _, g2_s, _ = graphed()
     captures = {k: S.TRACE_COUNT[k] - trace0[k] for k in trace0}
 
-    logits, cache = api.prefill(cfg, params, {"tokens": prompts}, p + g)
+    logits, cache = api.prefill(cfg, params, inputs, p + g)
     e_steps = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1616,16 +1666,13 @@ def serve_step_graphs(cfg, params, dev, request):
         e_steps.append(logits)
     torch.cuda.synchronize()
     e_s = (time.perf_counter() - t0) / (g - 1)
-    bitwise = sum(bool(torch.equal(a, e)) for a, e in zip(g_steps, e_steps))
+    n_bitwise = sum(bool(torch.equal(a, e)) for a, e in zip(g_steps, e_steps))
     diffs = [float((a.float() - e.float()).abs().max()) for a, e in zip(g_steps, e_steps)]
-    bounds = [BF16_STEP * float(e.float().abs().max()) for e in e_steps]
     same_tokens = all(bool(torch.equal(S._argmax_token(e), toks[:, i + 1:i + 2]))
                       for i, e in enumerate(e_steps))
     row = {"phase": "serve_step_graphs", "arch": cfg.name,
            "request": {"batch": b, "prompt": p, "gen": g},
-           "steps": g - 1, "bitwise_equal_steps": bitwise,
-           "max_abs_diff": max(diffs), "bound": min(bounds),
-           "bound_rule": "one bf16 step (2^-7) of the step's largest |logit|",
+           "steps": g - 1, "bitwise_equal_steps": n_bitwise, "max_abs_diff": max(diffs),
            "tokens_equal_eager": same_tokens,
            "second_request_tokens_equal": bool(torch.equal(toks, toks2)),
            "captures_over_both_requests": captures,
@@ -1636,9 +1683,10 @@ def serve_step_graphs(cfg, params, dev, request):
                                                            p + g - 1))}
     emit(row)
     ok = (same_tokens and row["second_request_tokens_equal"] and not any(captures.values())
-          and all(d <= bd for d, bd in zip(diffs, bounds)))
+          and n_bitwise == g - 1)
     if not ok:
         raise AssertionError(f"{cfg.name}: graphed decode check failed")
+    return row
 
 
 def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
@@ -1662,7 +1710,7 @@ def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     planner = ServePlanner(table)
     plan = table.lookup(b, p + g, None)
     budget = table.e_startup + per_cycle * plan.e_total
-    S.PlannedExecutor(cfg.name, planner, device=dev, params={0: params}).warmup(
+    S.PlannedExecutor(cfg.name, planner, device=dev, params={(0, p + g): params}).warmup(
         [(b, p, g, 0)], cycle_budget=budget)
     S.serve(cfg.name, b, p, g, smoke=False, device=dev, params=params)  # warms the unplanned key
     torch.cuda.synchronize()
@@ -1758,7 +1806,7 @@ def traffic_path(cfg, params, dev, table):
                                             deterministic_arrivals, request_energy)
 
     b, p, g = TRAFFIC_SHAPE
-    ex = S.PlannedExecutor(cfg.name, table, device=dev, params={0: params})
+    ex = S.PlannedExecutor(cfg.name, table, device=dev, params={(0, p + g): params})
     plan = ex.planner.plan_for(b, p + g, None)
     _, e_req = request_energy(plan, g, None, ex.planner.e_startup)
     harness = TrafficHarness(ex, harvest=HarvestModel(capacity=1.5 * e_req, rate=0.9 * e_req),
@@ -2316,6 +2364,438 @@ def dse_path(built, ledger, swarm, thermal, workdir: Path, dev) -> int:
     return launches
 
 
+# -- the model zoo ----------------------------------------------------------------
+
+# (arch, layers served (None: all), requests (batch, prompt, generated
+# tokens)), in the order served, each at its full width with random weights
+# from seed 0. deepseek-coder-33b (about 62 GiB of bf16 weights) runs last;
+# phi3.5-moe runs 16 of its 32 layers: its 78 GiB of bf16 weights do not fit
+# in 80 GB beside a cache.
+ZOO = (
+    ("tinyllama-1.1b", None, ((4, 512, 16),)),
+    ("qwen1.5-0.5b", None, ((4, 512, 16),)),
+    ("granite-moe-1b-a400m", None, ((4, 512, 16),)),
+    ("llama-3.2-vision-11b", None, ((4, 512, 16),)),
+    ("whisper-large-v3", None, ((4, 128, 16),)),
+    ("phi3.5-moe-42b-a6.6b", 16, ((4, 512, 16),)),
+    ("deepseek-coder-33b", None, ((1, 512, 8),)),
+)
+# The zoo's parity control: the plain path with its RMSNorm and attention
+# outputs × (1 + 2^-3) past position 64 (a fault of both kernels). qwen3-4b's
+# control is attention × (1 + 2^-4); the zoo's is larger and reaches the
+# RMSNorms too, since in the MoE models the experts, not attention, carry
+# most of the residual stream.
+ZOO_CONTROL = 2.0 ** -3
+ZOO_GATE = 0.5          # the vlm cross gates of the second prefill (repro's are 0)
+# whisper's planned request: (batch, prompt, generated), decode steps per
+# energy cycle, the cycle after which a power failure is injected.
+WHISPER_PLANNED = ((1, 128, 8), 3, 1)
+
+
+def held_params(cfg, max_seq: int) -> int:
+    """The numbers ``cfg``'s model holds, counted from its layout (the
+    reference's parameter tree): q/k-norm weights, QKV biases, a tied head
+    (none of its own), the vlm's self and cross layers (a cross layer: its
+    attention, one norm and a gate), whisper's LayerNorm biases, GELU-MLP
+    biases and learned positions (``max_seq`` decoder rows)."""
+    d, hd, ff = cfg.d_model, cfg.hd, cfg.d_ff
+    nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    proj = 2 * d * nq + 2 * d * nkv
+    attn = proj + ((nq + 2 * nkv) if cfg.qkv_bias else 0) + (2 * hd if cfg.qk_norm else 0)
+    if cfg.family == "encdec":
+        mlp = 2 * d * ff + ff + d
+        return (2 * cfg.vocab * d + (cfg.n_audio_frames + max_seq) * d + 4 * d
+                + cfg.n_encoder_layers * (attn + mlp + 4 * d)
+                + cfg.n_layers * (attn + proj + mlp + 6 * d))
+    n_cross = cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" else 0
+    if cfg.family == "moe":
+        m = cfg.moe
+        ffn = d * m.n_experts + 3 * m.n_experts * d * m.d_ff_expert
+    else:
+        ffn = 3 * d * ff
+    head = 0 if cfg.tie_embeddings else cfg.vocab * d
+    return (cfg.vocab * d + head + d + (cfg.n_layers - n_cross) * (attn + ffn + 2 * d)
+            + n_cross * (proj + d + 1))
+
+
+def stand_in(cfg, dev, seed: int = 5):
+    """b → the vlm's or whisper's stand-ins (``api.extra_inputs``), seeded
+    random normal bf16 instead of the zeros serving feeds."""
+    from repro_torch.models import api
+
+    def make(b):
+        gen = torch.Generator(device=dev).manual_seed(seed + b)
+        return {name: _randn(gen, shape, dtype, dev)
+                for name, (shape, dtype) in api.extra_inputs(cfg, b).items()}
+    return make
+
+
+@contextlib.contextmanager
+def cross_gates(params, value):
+    """Sets every vlm cross gate of ``params`` to ``value`` inside the block
+    and restores them after; ``value`` None (or a model without cross
+    gates) changes nothing."""
+    gates = [] if value is None else [layer.gate for layer in getattr(params, "cross", ())]
+    saved = [g.clone() for g in gates]
+    for g in gates:
+        g.fill_(value)
+    try:
+        yield
+    finally:
+        for g, kept in zip(gates, saved):
+            g.copy_(kept)
+
+
+def _one_step(y, share: float, gen):
+    """``y`` (bf16) with a random ``share`` of its elements moved one bf16
+    step up or down, the direction at random: the difference between two
+    correct roundings of the same value."""
+    f = y.to(torch.float32)
+    step = torch.exp2(torch.floor(torch.log2(f.abs().clamp_min(1e-30))) - 7)
+    pick = torch.rand(f.shape, generator=gen, device=f.device) < share
+    sign = torch.where(torch.rand(f.shape, generator=gen, device=f.device) < 0.5, -1.0, 1.0)
+    return torch.where(pick & (f != 0), f + sign * step, f).to(y.dtype)
+
+
+def rounding_reference(dev, seed: int = 7):
+    """The plain path made to differ from itself as the kernel path does:
+    at every kernel site the kernel and its plain version run on the same
+    input, and the plain output leaves with as many elements one bf16 step
+    off as the kernel's output differs from it, at random places and in
+    random directions. Its logits' distance from the plain path is the
+    model's response to the kernels' rounding at their own sites."""
+    from repro_torch.models.common import KERNELS, PLAIN
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def shadow(kernel_fn, plain_fn):
+        def fn(*args):
+            got, want = kernel_fn(*args), plain_fn(*args)
+            share = float((got != want).to(torch.float32).mean())
+            return _one_step(want, share, gen)
+        return fn
+
+    return dataclasses.replace(PLAIN, rmsnorm=shadow(KERNELS.rmsnorm, PLAIN.rmsnorm),
+                               attention=shadow(KERNELS.attention, PLAIN.attention))
+
+
+def _scaled_rmsnorm(excess: float, first: int):
+    """The plain RMSNorm with its output scaled by 1 + ``excess`` at
+    positions (axis 1) from ``first`` on."""
+    def rmsnorm(x, w, eps):
+        from repro_torch.models.common import PLAIN
+
+        y = PLAIN.rmsnorm(x, w, eps)
+        scale = torch.ones(y.shape[1], device=y.device, dtype=torch.float32)
+        scale[first:] += excess
+        return (y.to(torch.float32) * scale.view(1, -1, *([1] * (y.dim() - 2)))).to(y.dtype)
+    return rmsnorm
+
+
+class RoutePin:
+    """Records the routing of every MoE layer of ``params`` on one run and
+    replays it on the next ones, so that a path compared with the plain
+    path takes the plain path's experts: a near-tie route that flips
+    between two bf16 paths is a discontinuity, not rounding. No-op for a
+    model without MoE layers."""
+
+    def __init__(self, params):
+        from repro_torch.models.moe import MoE
+
+        self.mods = [layer.mlp for layer in getattr(params, "layers", ())
+                     if isinstance(layer.mlp, MoE)]
+        self.log = {id(m): [] for m in self.mods}
+
+    @contextlib.contextmanager
+    def record(self):
+        for m in self.mods:
+            self.log[id(m)] = []
+
+            def routing(x, m=m, fn=type(m).routing):
+                r = fn(m, x)
+                self.log[id(m)].append(r)
+                return r
+            m.routing = routing
+        try:
+            yield
+        finally:
+            for m in self.mods:
+                del m.routing
+
+    @contextlib.contextmanager
+    def replay(self):
+        for m in self.mods:
+            m.routing = lambda x, it=iter(self.log[id(m)]): next(it)
+        try:
+            yield
+        finally:
+            for m in self.mods:
+                del m.routing
+
+
+def zoo_parity(cfg, params, dev, requests, extra=None) -> dict:
+    """The kernel path against the plain path on the same weights, per
+    logits row (‖Δ‖₂/‖plain‖₂): the last prefill position with serving's
+    inputs (zero stand-ins) and the decode steps under teacher forcing (the
+    plain path fed the kernel path's tokens); with ``extra``, a second
+    prefill on seeded random stand-ins with the vlm cross gates at
+    ZOO_GATE. The limit is twice the largest reading of
+    :func:`rounding_reference` on the same rows: every kernel row within
+    it; the control (both kernels' outputs × (1 + ZOO_CONTROL) past
+    position 64) above it in every prefill row. MoE paths take the plain
+    path's routes (:class:`RoutePin`); the kernel path's reading with its
+    own routes is kept beside them."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS, PLAIN
+
+    rounding = rounding_reference(dev)
+    control = dataclasses.replace(PLAIN, attention=_scaled_attention(ZOO_CONTROL, 64),
+                                  rmsnorm=_scaled_rmsnorm(ZOO_CONTROL, 64))
+    paths = {"kernel": KERNELS, "rounding": rounding, "control": control}
+    pin = RoutePin(params)
+    out = []
+    for b, p, g in requests:
+        tokens = _tokens(cfg, b, p, dev, b * 7919 + p)
+        cases = [("zero_stand_in", S._pre_batch(cfg, tokens))]
+        if extra is not None:
+            cases.append(("random_stand_in_gates", {"tokens": tokens, **extra(b)}))
+        row = {"batch": b, "prompt": p, "gen": g}
+        for name, inputs in cases:
+            with cross_gates(params, None if name == "zero_stand_in" else ZOO_GATE):
+                with pin.record():
+                    pl, pc = api.prefill(cfg, params, inputs, p + g, PLAIN)
+                logits, caches, reading = {}, {}, {}
+                for path, ks in paths.items():
+                    with pin.replay():
+                        logits[path], caches[path] = api.prefill(cfg, params, inputs, p + g, ks)
+                    reading[f"{path}_prefill"] = _row_rel(logits[path], pl)
+                if pin.mods:
+                    free, _ = api.prefill(cfg, params, inputs, p + g)
+                    reading["kernel_own_routes_prefill"] = _row_rel(free, pl)
+                    del free
+            if name == "zero_stand_in":
+                tok = logits["kernel"][:, -1].argmax(dim=-1, keepdim=True)
+                dec = {"kernel": [], "rounding": []}
+                for i in range(g - 1):
+                    with pin.record():
+                        step, pc = api.decode_step(cfg, params, pc, tok, p + i, PLAIN)
+                    for path in dec:
+                        with pin.replay():
+                            got, caches[path] = api.decode_step(cfg, params, caches[path], tok,
+                                                                p + i, paths[path])
+                        if not bool(torch.isfinite(got).all()):
+                            raise AssertionError(f"{cfg.name}: {path} path logits not finite")
+                        dec[path].append(_row_rel(got, step))
+                        if path == "kernel":
+                            next_tok = got[:, -1].argmax(dim=-1, keepdim=True)
+                    tok = next_tok
+                for path, rows in dec.items():
+                    if rows:
+                        reading[f"{path}_decode"] = torch.cat(rows)
+            row[name] = {k: [float(v.min()), float(v.max())] for k, v in reading.items()}
+            del pc, caches, logits
+        out.append(row)
+    limit = 2 * max(v[1] for r in out for c in r.values() if isinstance(c, dict)
+                    for k, v in c.items() if k.startswith("rounding"))
+    reading = {"phase": "zoo_kernel_vs_plain_path", "arch": cfg.name, "requests": out,
+               "limit": limit,
+               "limit_rule": "2 x the largest row of the rounding reference (the plain path "
+                             "with as many one-step bf16 differences at each kernel site as "
+                             "the kernel makes there)",
+               "reading": "per logits row ‖Δ‖₂/‖plain‖₂, [min, max] over rows",
+               "control": f"plain path, RMSNorm and attention x (1 + {ZOO_CONTROL}) past "
+                          "position 64",
+               "routes": "MoE paths replay the plain path's routes" if pin.mods else None}
+    emit(reading)
+    for r in out:
+        for name, c in r.items():
+            if not isinstance(c, dict):
+                continue
+            worst = max(v[1] for k, v in c.items() if k in ("kernel_prefill", "kernel_decode"))
+            if worst > limit:
+                raise AssertionError(f"{cfg.name} kernel path off the plain path ({name}): "
+                                     f"{worst} > {limit}")
+            if c["control_prefill"][0] <= limit:
+                raise AssertionError(f"{cfg.name}: the control passed the parity check "
+                                     f"({name}): the check does not discriminate")
+    return reading
+
+
+def moe_routing(cfg, params, dev, request) -> dict:
+    """The routing of ``cfg``'s MoE layers at full width on one prefill of
+    ``request``: the share of (token, choice) pairs dropped at capacity in
+    each layer of the kernel path; the first layer's routing on the card
+    against the CPU's on the same float32 probabilities, and on the same
+    probabilities rounded to sixteenths (ties everywhere): experts, queue
+    positions and drops equal, gates within 2^-20 relative (their sum of k
+    terms may add in another order); and, for the record, the first
+    layer's routes on the kernel path against the plain path, each on its
+    own MoE input (ln1 RMSNorm, flash attention, residual, ln2 RMSNorm):
+    near-tie bf16 logits may route apart."""
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS, PLAIN, rmsnorm
+    from repro_torch.models.moe import moe_capacity, route
+
+    b, p, g = request
+    m = cfg.moe
+    capacity = moe_capacity(m, min(1024, p))
+    tokens = _tokens(cfg, b, p, dev, 31 + b)
+    counts = []
+
+    def hook(mod, args):
+        kept = mod.routing(args[0]).kept
+        counts.append((int((~kept).sum()), kept.numel()))
+
+    hooks = [layer.mlp.register_forward_pre_hook(hook) for layer in params.layers]
+    try:
+        api.prefill(cfg, params, {"tokens": tokens}, p + g)
+    finally:
+        for h in hooks:
+            h.remove()
+    layer, eps = params.layers[0], cfg.norm_eps
+    x = params.embed[tokens]
+    positions = torch.arange(p, device=dev)[None]
+    inputs = {}
+    with torch.no_grad():
+        for name, ks in (("kernel", KERNELS), ("plain", PLAIN)):
+            a, _ = layer.attn(rmsnorm(x, layer.ln1, eps, ks), positions, ks)
+            inputs[name] = rmsnorm(x + a, layer.ln2, eps, ks)
+        routes = {name: layer.mlp.routing(h) for name, h in inputs.items()}
+        probs = layer.mlp.router_probs(inputs["plain"])
+    card_cpu = {}
+    for name, pr in (("probabilities", probs), ("ties", torch.round(probs * 16) / 16)):
+        on_card, on_cpu = route(pr, m.top_k, capacity), route(pr.cpu(), m.top_k, capacity)
+        gate_rel = float(((on_card.gate.cpu() - on_cpu.gate).abs()
+                          / on_cpu.gate.clamp_min(1e-30)).max())
+        card_cpu[name] = {"sel": torch.equal(on_card.sel.cpu(), on_cpu.sel),
+                          "pos": torch.equal(on_card.pos.cpu(), on_cpu.pos),
+                          "kept": torch.equal(on_card.kept.cpu(), on_cpu.kept),
+                          "gate_max_rel_diff": gate_rel}
+    equal = (routes["kernel"].sel == routes["plain"].sel).float().mean().item()
+    dropped = sum(n for n, _ in counts)
+    pairs = sum(t for _, t in counts)
+    row = {"phase": "zoo_moe_routing", "arch": cfg.name,
+           "request": {"batch": b, "prompt": p}, "experts": m.n_experts, "top_k": m.top_k,
+           "capacity": capacity, "layers": len(counts), "dropped_share": dropped / pairs,
+           "dropped_share_by_layer": [n / t for n, t in counts],
+           "card_routing_against_cpu": card_cpu,
+           "first_layer_own_input_equal_route_share": equal,
+           "first_layer_own_input_routes_differing": int(
+               (routes["kernel"].sel != routes["plain"].sel).sum())}
+    emit(row)
+    exact = all(c["sel"] and c["pos"] and c["kept"] and c["gate_max_rel_diff"] <= 2.0 ** -20
+                for c in card_cpu.values())
+    if len(counts) != cfg.n_layers or not exact:
+        raise AssertionError(f"{cfg.name}: MoE routing check failed")
+    return row
+
+
+def whisper_planned(cfg, params, dev, workdir: Path) -> tuple:
+    """whisper-large-v3's time table built by the planner CLI on the sweep
+    kernel for the WHISPER_PLANNED request's bucket, then the request served
+    planned on it with one power failure (:func:`serve_planned`: tokens
+    equal to unplanned serving's). Returns (the build's sweep launches, the
+    planned run's kernel launches)."""
+    from repro_torch.core.plan_table import PlanTable
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import planner
+
+    (b, p, g), per_cycle, crash_after = WHISPER_PLANNED
+    workdir.mkdir(parents=True, exist_ok=True)
+    out = workdir / "whisper_time.npz"
+    sweeps0 = sweep_columns_cuda.launches
+    if planner.main(["--arch", cfg.name, "--full", "--device", "cuda", "--buckets",
+                     f"{b}x{p + g}", "--out", str(out)]) != 0:
+        raise AssertionError("the planner CLI failed on whisper-large-v3")
+    sweeps = sweep_columns_cuda.launches - sweeps0
+    if sweeps < 1:
+        raise AssertionError("whisper's table was built without the sweep kernel")
+    launches = serve_planned(cfg, params, dev, PlanTable.load(str(out)), (b, p, g), per_cycle,
+                             crash_after)
+    return sweeps, launches
+
+
+def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
+    """One architecture of the zoo at full width: served through ``serve``
+    and the graphed decode (:func:`serve_path`: launches, one capture per
+    request shape, the parameters held beside ``param_count()``), every
+    prefill flash cell (:func:`flash_cells`, on the random stand-in with
+    the vlm gates nonzero), the kernel path against the plain path
+    (:func:`zoo_parity`), the graphed decode bitwise equal to eager, a warm
+    request's prefill ms and decode ms/token, MoE routing and whisper's
+    planned request. Returns ({path: launches}, the planner's sweep
+    launches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import register
+    from repro_torch.launch import serve as S
+
+    cfg = get_config(arch)
+    reduced = None
+    if layers is not None:
+        reduced = f"n_layers {cfg.n_layers}→{layers}"
+        cfg = register(dataclasses.replace(cfg, name=f"{arch}-{layers}-layers", n_layers=layers))
+    max_seq = max(p + g for _, p, g in requests)
+    pre, step = step_launches(cfg)
+    want = {k: sum(pre[k] + (g - 1) * step[k] for _, _, g in requests) for k in pre}
+    t0 = time.perf_counter()
+    params, launches = serve_path(dev, cfg, requests, (cfg.param_count(), held_params(cfg, max_seq)),
+                                  want)
+    by_path = {f"zoo {arch}": launches}
+    extra = stand_in(cfg, dev) if cfg.family in ("vlm", "encdec") else None
+    with cross_gates(params, ZOO_GATE if extra else None):
+        cells = flash_cells(cfg, params, dev, requests, extra)
+    parity = zoo_parity(cfg, params, dev, requests, extra)
+    graphs = serve_step_graphs(cfg, params, dev, requests[0])
+    trace = serve_trace(cfg, params, dev, requests[0])
+    b, p, g = requests[0]
+    warm = {}
+    S.serve(cfg.name, b, p, g, smoke=False, seed=0, device=dev, params=params, report=warm)
+    routing = moe_routing(cfg, params, dev, requests[0]) if cfg.family == "moe" else None
+    sweeps = 0
+    if cfg.family == "encdec":
+        sweeps, by_path[f"zoo {arch} planned"] = whisper_planned(cfg, params, dev, workdir)
+    n_params = sum(t.numel() for t in params.parameters())
+    emit({"phase": "zoo", "arch": arch, "reduced": reduced, "family": cfg.family,
+          "layers": cfg.n_layers, "d_model": cfg.d_model, "requests": [list(r) for r in requests],
+          "param_count": cfg.param_count(), "parameters_held": n_params,
+          "weights_gib": sum(t.numel() * t.element_size() for t in params.parameters()) / 2 ** 30,
+          "prefill_ms": warm["prefill_ms"], "decode_ms_per_token": warm["decode_ms_per_token"],
+          "prefill_device_busy_s": trace["device_busy_s"], "prefill_idle_share": trace["idle_share"],
+          "graph_decode_bitwise_steps": [graphs["bitwise_equal_steps"], graphs["steps"]],
+          "flash_cells": sum(r["cells"] for r in cells),
+          "flash_cells_by_kind": [r["cells_by_kind"] for r in cells],
+          "flash_largest_share_of_bound": max(r["largest_share_of_bound"] for r in cells),
+          "flash_control_smallest_share": min(r["control_smallest_share"] for r in cells),
+          "parity": parity["requests"], "parity_limit": parity["limit"],
+          "moe_dropped_share": routing and routing["dropped_share"],
+          "moe_first_layer_own_input_equal_route_share":
+              routing and routing["first_layer_own_input_equal_route_share"],
+          "planned_sweep_launches": sweeps, "launches": by_path,
+          "seconds": time.perf_counter() - t0})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return by_path, sweeps
+
+
+def zoo_path(dev, workdir: Path) -> tuple:
+    """The seven architectures of ZOO, one after another, each freed before
+    the next. Returns ({path: launches}, whisper's table's sweep launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "zoo_start", "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30})
+    t0 = time.perf_counter()
+    by_path, sweeps = {}, 0
+    for arch, layers, requests in ZOO:
+        paths, n = zoo_model(arch, layers, requests, dev, workdir)
+        by_path.update(paths)
+        sweeps += n
+    emit({"phase": "zoo_done", "seconds": time.perf_counter() - t0,
+          "archs": [a for a, _, _ in ZOO]})
+    return by_path, sweeps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
@@ -2623,7 +3103,7 @@ def main() -> int:
     rms_err, flash_err = model_kernel_checks(dev)
     cfg = get_config(SERVE_ARCH)
     params, serve_launches = serve_path(dev, cfg, SERVE_REQUESTS, *qwen_expected(cfg))
-    qwen_flash_cells(cfg, params, dev)
+    flash_cells(cfg, params, dev, SERVE_REQUESTS)
     serve_parity(cfg, params, dev)
     serve_trace(cfg, params, dev)
     serve_step_graphs(cfg, params, dev, SERVE_REQUESTS[0])
@@ -2644,6 +3124,7 @@ def main() -> int:
     swarm = placement_path(ROOT / "build" / "swarm", dev)
     dse_launches = dse_path(built, traffic.ledger, swarm, (thermal, cm, t_grid),
                             ROOT / "build" / "dse", dev)
+    del traffic
 
     # -- phases 12-17: the xLSTM path: mLSTM kernel, serving, checks, trace ---
     mlstm_err = mlstm_kernel_checks(dev)
@@ -2659,6 +3140,10 @@ def main() -> int:
         xcfg, xparams, dev, time_tables[XLSTM_ARCH], *PLANNED[XLSTM_ARCH])
     del xparams
     torch.cuda.empty_cache()
+
+    # -- the model zoo: seven architectures served at full width ---------------
+    zoo_launches, zoo_sweeps = zoo_path(dev, ROOT / "build" / "zoo")
+    launches_by_path.update(zoo_launches)
 
     # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and
@@ -2700,11 +3185,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
         "launches": (launches["partition_sweep"] + plan_launches + calibration_launches
-                     + swarm["launches"] + dse_launches),
+                     + swarm["launches"] + dse_launches + zoo_sweeps),
         "launches_by_path": {"headcount": launches["partition_sweep"],
                              "plan_table": plan_launches,
                              "calibration": calibration_launches,
-                             "placement": swarm["launches"], "dse": dse_launches},
+                             "placement": swarm["launches"], "dse": dse_launches,
+                             "zoo whisper-large-v3 table": zoo_sweeps},
         "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],

@@ -1,11 +1,24 @@
 """Architecture configs of the port, one module per architecture.
 
 Only the architectures whose model family the port runs are registered:
-qwen3-4b (dense) and xlstm-1.3b (ssm). The other eight of ``repro.configs``
-follow with their families (ROADMAP.md, queue 1).
+nine of ``repro.configs``' ten, the dense (qwen3-4b, tinyllama-1.1b,
+deepseek-coder-33b, qwen1.5-0.5b), moe (granite-moe-1b-a400m,
+phi3.5-moe-42b-a6.6b), vlm (llama-3.2-vision-11b), encdec
+(whisper-large-v3) and ssm (xlstm-1.3b) families. zamba2-7b, the hybrid
+family, follows with its slice (ROADMAP.md, queue 1, item 10).
 """
 
-from . import qwen3_4b, xlstm_1_3b
+from . import (
+    deepseek_coder_33b,
+    granite_moe_1b,
+    llama3_2_vision_11b,
+    phi3_5_moe,
+    qwen1_5_0_5b,
+    qwen3_4b,
+    tinyllama_1_1b,
+    whisper_large_v3,
+    xlstm_1_3b,
+)
 from .base import REGISTRY, ModelConfig, get_config
 
 ALL_ARCHS = sorted(REGISTRY)
@@ -13,6 +26,13 @@ ALL_ARCHS = sorted(REGISTRY)
 SMOKE_CONFIGS = {
     "qwen3-4b": qwen3_4b.SMOKE,
     "xlstm-1.3b": xlstm_1_3b.SMOKE,
+    "tinyllama-1.1b": tinyllama_1_1b.SMOKE,
+    "deepseek-coder-33b": deepseek_coder_33b.SMOKE,
+    "qwen1.5-0.5b": qwen1_5_0_5b.SMOKE,
+    "granite-moe-1b-a400m": granite_moe_1b.SMOKE,
+    "phi3.5-moe-42b-a6.6b": phi3_5_moe.SMOKE,
+    "llama-3.2-vision-11b": llama3_2_vision_11b.SMOKE,
+    "whisper-large-v3": whisper_large_v3.SMOKE,
 }
 
 

@@ -1,0 +1,16 @@
+"""Phi-3.5-MoE 42B (6.6B active) — 16 experts top-2 [hf:microsoft/Phi-3.5-MoE-instruct; hf]."""
+from .base import ModelConfig, MoEConfig, register
+
+CONFIG = register(ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
+    vocab=32064, moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=6400),
+    source="hf:microsoft/Phi-3.5-MoE-instruct",
+))
+
+SMOKE = ModelConfig(
+    name="phi3.5-moe-smoke", family="moe",
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96,
+    vocab=256, moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=96),
+    source="smoke",
+)

@@ -32,10 +32,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_bound(q, k, v, want, causal: bool) -> torch.Tensor:
     """|Δ| allowed between the bfloat16 flash kernel and its plain version
     ``want`` on q, k, v (kernel layout). The kernel rounds each p to
-    bfloat16 before PV (at most 2^-8 relative) and the plain version does
-    not, so their float32 outputs differ by at most 2^-8·A, A = Σ p|v| / Σ p
-    (the plain version run on |v|), plus float32 terms far below 2^-9·A;
-    both outputs round to bfloat16, which may put them one step (2^-7·|o|)
-    apart. Bound: 2^-7·(|plain| + A) + 1e-6, float32, shaped like q."""
+    bfloat16 before PV (at most 2^-8 relative, bfloat16's unit roundoff)
+    and sums the unrounded p into the denominator, as the plain version
+    does, so their float32 outputs differ by at most 2^-8·A, A = Σ p|v| / Σ p
+    (the plain version run on |v|), plus the float32 sums over Sk keys in
+    two orders, each within Sk·2^-24·A. Both outputs round to bfloat16,
+    each by at most half a step, which may put them one step (2^-7·|o|)
+    apart. Bound: 2^-7·|plain| + (2^-8 + Sk·2^-23)·A + 1e-6, float32,
+    shaped like q."""
     a = attention_plain(q.float(), k.float(), v.float().abs(), causal=causal)
-    return BF16_STEP * (want.to(torch.float32).abs() + a) + 1e-6
+    return (BF16_STEP * want.to(torch.float32).abs()
+            + (2.0 ** -8 + k.shape[1] * 2.0 ** -23) * a + 1e-6)

@@ -2,20 +2,26 @@
 for xLSTM), then greedy decode steps extend it; optionally scheduled from a
 precomputed plan table.
 
-    python -m repro_torch.launch.serve [--arch qwen3-4b|xlstm-1.3b] [--batch 4]
+    python -m repro_torch.launch.serve [--arch ARCH] [--batch 4]
         [--prompt-len 32] [--gen 16] [--full] [--device cuda]
         [--plan-table plan.npz [--energy-budget E]
          [--calibration ledger.json [--drift-tol 0.05]]]
         [--trace-out t.json] [--metrics-out m.json]
 
-The port of ``repro/launch/serve.py``, for qwen3-4b (dense, KV cache) and
-xlstm-1.3b (recurrent state; its prompt length must be a multiple of 128 or
-below 128). As in ``repro``, the CLI and :func:`serve` default to the small
-config of the architecture (``--smoke`` is accepted and changes nothing);
-``--full`` (``serve(smoke=False)``) runs it at its full width (qwen3-4b: 36
-layers, d 2560, 4,411,417,600 parameters; xlstm-1.3b: 48 layers, d 2048)
-with random weights from ``--seed``. So the planner CLI's default table
-serves under this CLI's default.
+The port of ``repro/launch/serve.py``, for the nine architectures the port
+registers: qwen3-4b, tinyllama-1.1b, deepseek-coder-33b and qwen1.5-0.5b
+(dense, KV cache), granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b (moe),
+llama-3.2-vision-11b (vlm: a zero stand-in of 1601 vision tokens,
+cross-attention caches), whisper-large-v3 (encdec: a zero stand-in of 1500
+audio frames) and xlstm-1.3b (recurrent state; its prompt length must be a
+multiple of 128 or below 128). As in ``repro``, the CLI and :func:`serve`
+default to the small config of the architecture (``--smoke`` is accepted
+and changes nothing); ``--full`` (``serve(smoke=False)``) runs it at its
+full width (qwen3-4b: 36 layers, d 2560, 4,411,417,600 parameters;
+xlstm-1.3b: 48 layers, d 2048) with random weights from ``--seed``, made
+by ``api.init_params(cfg, seed, max_seq=prompt + gen)`` as ``repro`` makes
+them (``max_seq`` sizes whisper's decoder positions). So the planner CLI's
+default table serves under this CLI's default.
 
 **Step functions.** ``repro`` jits prefill and decode once per shape
 (``_step_fns``). Here :func:`_step_fns` caches, per (arch, smoke, batch,
@@ -36,7 +42,8 @@ token steps are grouped into cycles that fit ``--energy-budget``, and the
 request runs as a task graph under
 :class:`repro_torch.core.runtime.BurstRuntime`: every cycle boundary
 commits the decode state to NVM, so a power failure mid-request resumes
-from the last committed cycle. The planned path never donates: a decode
+from the last committed cycle. The executor keys its models on (seed,
+max_seq), as ``repro`` does. The planned path never donates: a decode
 task copies the state it reads into the graph's inputs and emits a copy of
 what the graph wrote, so nothing the runtime stores or reloads is a buffer
 a later replay overwrites. Scheduling changes, results never do: planned
@@ -61,7 +68,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from ..configs import resolve_config
+from ..configs import ALL_ARCHS, resolve_config
 from ..device import resolve_device
 from ..models import api
 from ..obs.metrics import METRICS
@@ -214,8 +221,8 @@ def _step_fns(arch: str, smoke: bool, batch: int, max_seq: int, device: torch.de
     """Cached (prefill, decode) for both serving paths, per (arch, smoke,
     batch, max_seq, device, donate).
 
-    ``prefill(params, {"tokens": [batch, S]})`` and ``decode(params, cache,
-    tok [batch, 1], pos)`` return (logits, cache). On a card decode replays
+    ``prefill(params, _pre_batch(cfg, tokens [batch, S]))`` and
+    ``decode(params, cache, tok [batch, 1], pos)`` return (logits, cache). On a card decode replays
     a CUDA graph (:class:`_GraphedDecode`); on the CPU both run eagerly.
     ``donate=True`` (the unplanned path) hands back the cache decode wrote
     in place (the graph's own static cache on a card), the counterpart of
@@ -243,10 +250,13 @@ def _prompts(cfg, batch: int, prompt_len: int, seed: int, dev: torch.device) -> 
 
 
 def _pre_batch(cfg, prompts) -> Dict[str, Any]:
-    """The prefill's inputs. The ported families (dense, ssm) take tokens
-    only; ``repro``'s vision and audio stand-ins come with the vlm and
-    encdec families (ROADMAP.md queue 1, item 10)."""
-    return {"tokens": prompts}
+    """The prefill's inputs: the tokens and, as ``repro`` feeds them, zero
+    stand-ins for the vlm's vision tokens and encdec's audio frames
+    (``api.extra_inputs``), on the prompts' device."""
+    out: Dict[str, Any] = {"tokens": prompts}
+    for name, (shape, dtype) in api.extra_inputs(cfg, prompts.shape[0]).items():
+        out[name] = torch.zeros(shape, dtype=dtype, device=prompts.device)
+    return out
 
 
 def _cache_nbytes(cfg, batch: int, max_seq: int) -> int:
@@ -315,8 +325,10 @@ class PlannedExecutor:
 
     Owns what amortizes across a request stream: the resolved config, the
     :class:`~repro_torch.launch.planner.ServePlanner` (O(1) lookups), the
-    models by seed (made on first use, or handed in as ``params``: {seed:
-    model on ``device``}), and the process-wide step-function cache. It
+    models by (seed, max_seq) as ``repro`` keys them (made on first use by
+    ``api.init_params(cfg, seed, max_seq=max_seq)``, or handed in as
+    ``params``: {(seed, max_seq): model on ``device``}), and the
+    process-wide step-function cache. It
     :meth:`open`\\ s each request as a
     :class:`~repro_torch.launch.traffic.Continuation` whose energy cycles
     commit one :meth:`~repro_torch.launch.traffic.Continuation.step` at a
@@ -340,13 +352,14 @@ class PlannedExecutor:
                 f"plan table was built for {self.planner.table.arch!r} but "
                 f"this request is for {self.cfg.name!r}"
             )
-        self._params: Dict[int, Any] = dict(params or {})
+        self._params: Dict[Any, Any] = dict(params or {})
         self._next_rid = 0
 
-    def _params_for(self, seed: int):
-        if seed not in self._params:
-            self._params[seed] = api.init_params(self.cfg, seed, self.device)
-        return self._params[seed]
+    def _params_for(self, seed: int, max_seq: int):
+        key = (seed, max_seq)
+        if key not in self._params:
+            self._params[key] = api.init_params(self.cfg, seed, self.device, max_seq=max_seq)
+        return self._params[key]
 
     def make_prompts(self, batch: int, prompt_len: int, seed: int = 0) -> torch.Tensor:
         """The prompts :func:`serve` draws for ``seed``."""
@@ -372,7 +385,7 @@ class PlannedExecutor:
         max_seq = prompt_len + gen
         if plan is None:
             plan = self.planner.plan_for(batch, max_seq, cycle_budget)
-        params = self._params_for(seed)
+        params = self._params_for(seed, max_seq)
         if prompts is None:
             prompts = self.make_prompts(batch, prompt_len, seed)
         prefill_fn, decode_fn = _step_fns(self.arch, self.smoke, batch, max_seq, self.device,
@@ -406,7 +419,7 @@ class PlannedExecutor:
 def _serve_planned(arch, batch, prompt_len, gen, smoke, seed, device, params,
                    plan_table, energy_budget, nvm, crash_hook, report):
     ex = PlannedExecutor(arch, plan_table, smoke=smoke, device=device,
-                         params=None if params is None else {seed: params})
+                         params=None if params is None else {(seed, prompt_len + gen): params})
     cont = ex.open(batch, prompt_len, gen, seed=seed, cycle_budget=energy_budget,
                    nvm=nvm, crash_hook=crash_hook)
     _sync(ex.device)
@@ -436,7 +449,7 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = Tru
 
     ``smoke`` takes the architecture's small config (the default, as in
     ``repro``); ``smoke=False`` its full width. Parameters come from
-    ``api.init_params(cfg, seed)`` unless ``params``
+    ``api.init_params(cfg, seed, max_seq=prompt_len + gen)`` unless ``params``
     (a model already on ``device``) is given; the prompts are drawn from a
     generator seeded with ``seed + 1``. ``plan_table`` (path / PlanTable /
     ServePlanner) switches to the planned path of the module docstring;
@@ -463,13 +476,13 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = Tru
     cfg = resolve_config(arch, smoke=smoke)
     max_seq = prompt_len + gen
     if params is None:
-        params = api.init_params(cfg, seed, dev)
+        params = api.init_params(cfg, seed, dev, max_seq=max_seq)
     prompts = _prompts(cfg, batch, prompt_len, seed, dev)
     prefill, decode = _step_fns(arch, smoke, batch, max_seq, dev, donate=True)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, _pre_batch(cfg, prompts))
     tok = _argmax_token(logits)
     _sync(dev)
     t_pre = time.perf_counter() - t0
@@ -517,7 +530,8 @@ def calibration_probe(plan_table, arch: str, measured, *, smoke: bool = True,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="one of: " + ", ".join(ALL_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

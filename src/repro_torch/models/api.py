@@ -1,72 +1,115 @@
 """Model API: one entry point each for init / prefill / decode, dispatched
-on ``cfg.family`` (``repro/models/api.py``), plus :func:`params_from_numpy`,
-which carries the reference's parameters across.
+on ``cfg.family`` (``repro/models/api.py``), plus :func:`extra_inputs` (the
+modality stand-ins' shapes) and :func:`params_from_numpy`, which carries the
+reference's parameters across.
 
-Ported: the dense family (``transformer``) and the ssm family, xLSTM
-(``recurrent``); the others raise, naming the ROADMAP item.
+Ported: the dense, moe and vlm families (``transformer``), encdec
+(``encdec``) and the ssm family, xLSTM (``recurrent``). The hybrid family
+(zamba2) raises, naming the ROADMAP item.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import recurrent, transformer
-from .common import KERNELS, Kernels
+from . import encdec, recurrent, transformer
+from .common import COMPUTE_DTYPE, KERNELS, Kernels
 
-__all__ = ["init_params", "params_from_numpy", "prefill", "decode_step", "cache_shape"]
+__all__ = ["init_params", "params_from_numpy", "prefill", "decode_step", "cache_shape",
+           "extra_inputs"]
 
 
 def _module(cfg):
     """The module that runs ``cfg``'s family."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return transformer  # it raises for what it does not run yet
+        return transformer
+    if cfg.family == "encdec":
+        return encdec
     if cfg.family == "ssm":
         return recurrent
-    raise NotImplementedError(
-        f"the {cfg.family} family is not ported yet: ROADMAP.md queue 1, model zoo")
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            "the hybrid family (zamba2: models/ssm.py and the Zamba2 half of "
+            "models/recurrent.py) is not ported yet: ROADMAP.md queue 1, item 10")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def init_params(cfg, seed: int = 0, device="cuda"):
+def init_params(cfg, seed: int = 0, device="cuda", max_seq: int = 4096):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the numbers differ from ``repro``'s ``PRNGKey(seed)``; use
-    :func:`params_from_numpy` to run the reference's parameters)."""
+    :func:`params_from_numpy` to run the reference's parameters).
+    ``max_seq`` sizes encdec's decoder positions, as in ``repro``; the other
+    families take no part of it."""
     module = _module(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     with torch.no_grad():
         if module is recurrent:
             return recurrent.init_xlstm_lm(cfg, gen)
+        if module is encdec:
+            return encdec.init_encdec(cfg, gen, max_seq=max_seq)
         return transformer.init_lm(cfg, gen)
+
+
+def extra_inputs(cfg, batch: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """The modality stand-ins a prefill takes beside the tokens, as
+    (shape, dtype): vlm's precomputed patch embeddings ("vision"), encdec's
+    frame embeddings ("audio")."""
+    out = {}
+    if cfg.family == "vlm":
+        out["vision"] = ((batch, cfg.n_vision_tokens, cfg.d_model), COMPUTE_DTYPE)
+    if cfg.family == "encdec":
+        out["audio"] = ((batch, cfg.n_audio_frames, cfg.d_model), COMPUTE_DTYPE)
+    return out
+
+
+def _per_layer(stacked, i, t):
+    """Layer ``i`` of a tree stacked on axis 0, as tensors."""
+    if isinstance(stacked, Mapping):
+        return {k: _per_layer(v, i, t) for k, v in stacked.items()}
+    return t(stacked[i])
 
 
 def params_from_numpy(cfg, tree: Mapping[str, Any], device="cuda"):
     """``repro``'s parameter tree (``init_params(cfg, key)[0]``) as nested
-    dicts of numpy arrays → the port's model. Dense: layers stacked on axis
-    0. xLSTM: ``groups.m`` stacked [groups, blocks, ...], ``groups.s`` and
-    ``groups.s_ln`` stacked [groups, ...]."""
+    dicts of numpy arrays → the port's model. Dense and moe: ``layers``
+    stacked on axis 0 (moe's ``router``, ``w1``/``w3``/``w2`` stacked on E
+    beneath). vlm: ``groups.self`` stacked [n_groups, per − 1, ...],
+    ``groups.cross`` [n_groups, ...]. encdec: ``enc`` and ``dec`` stacked,
+    ``enc_ln``, ``dec_ln``, ``pos_enc``, ``pos_dec``. xLSTM: ``groups.m``
+    stacked [groups, blocks, ...], ``groups.s`` and ``groups.s_ln`` stacked
+    [groups, ...]."""
     module = _module(cfg)
     dev = resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
-    if module is recurrent:
-        return _xlstm_from_numpy(cfg, tree, t)
-    stacked = tree["layers"]
-
-    def layer(i):
-        return {"ln1": t(stacked["ln1"][i]), "ln2": t(stacked["ln2"][i]),
-                "attn": {k: t(a[i]) for k, a in stacked["attn"].items()},
-                "mlp": {k: t(a[i]) for k, a in stacked["mlp"].items()}}
-
     with torch.no_grad():
-        return transformer.DenseLM(cfg, {
-            "embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
-            "head": t(tree["head"]), "layers": (layer(i) for i in range(cfg.n_layers)),
-        })
+        if module is recurrent:
+            return _xlstm_from_numpy(cfg, tree, t)
+        if module is encdec:
+            return encdec.EncDecLM(cfg, {
+                **{k: t(tree[k]) for k in ("embed", "pos_enc", "pos_dec", "head")},
+                **{k: {n: t(a) for n, a in tree[k].items()} for k in ("enc_ln", "dec_ln")},
+                "enc": (_per_layer(tree["enc"], i, t) for i in range(cfg.n_encoder_layers)),
+                "dec": (_per_layer(tree["dec"], i, t) for i in range(cfg.n_layers)),
+            })
+        params = {"embed": t(tree["embed"]), "final_norm": t(tree["final_norm"])}
+        if not cfg.tie_embeddings:
+            params["head"] = t(tree["head"])
+        if cfg.family == "vlm":
+            n_groups, per_group = transformer.vlm_layout(cfg)
+            g = tree["groups"]
+            params["layers"] = (_per_layer(_per_layer(g["self"], i, lambda a: a), j, t)
+                                for i in range(n_groups) for j in range(per_group))
+            params["cross"] = (_per_layer(g["cross"], i, t) for i in range(n_groups))
+        else:
+            params["layers"] = (_per_layer(tree["layers"], i, t) for i in range(cfg.n_layers))
+        return transformer.DecoderLM(cfg, params)
 
 
 def _xlstm_from_numpy(cfg, tree, t):
@@ -78,21 +121,25 @@ def _xlstm_from_numpy(cfg, tree, t):
                        "ln": t(g["m"]["ln"][i, j])} for j in range(n_m)],
                 "s": {k: t(a[i]) for k, a in g["s"].items()}, "s_ln": t(g["s_ln"][i])}
 
-    with torch.no_grad():
-        return recurrent.XLSTMLM(cfg, {
-            "embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
-            "head": t(tree["head"]), "groups": (group(i) for i in range(n_groups)),
-        })
+    return recurrent.XLSTMLM(cfg, {
+        "embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
+        "head": t(tree["head"]), "groups": (group(i) for i in range(n_groups)),
+    })
 
 
 def prefill(cfg, params, batch: Dict[str, torch.Tensor], max_seq: int,
             kernels: Kernels = KERNELS):
-    """batch {"tokens": [B, S]} → (logits [B, 1, V], cache)."""
+    """batch {"tokens": [B, S]} (vlm: and "vision"; encdec: and "audio", of
+    :func:`extra_inputs`' shapes) → (logits [B, 1, V], cache)."""
     module = _module(cfg)
     with torch.no_grad():
         if module is recurrent:
             return recurrent.xlstm_prefill(cfg, params, batch["tokens"], max_seq, kernels)
-        return transformer.lm_prefill(cfg, params, batch["tokens"], max_seq, kernels)
+        if module is encdec:
+            return encdec.encdec_prefill(cfg, params, batch["tokens"], batch["audio"],
+                                         max_seq, kernels)
+        return transformer.lm_prefill(cfg, params, batch["tokens"], max_seq, kernels,
+                                      vision=batch.get("vision"))
 
 
 def decode_step(cfg, params, cache, token, pos, kernels: Kernels = KERNELS):
@@ -104,10 +151,16 @@ def decode_step(cfg, params, cache, token, pos, kernels: Kernels = KERNELS):
     with torch.no_grad():
         if module is recurrent:
             return recurrent.xlstm_decode_step(cfg, params, cache, token, pos, kernels)
+        if module is encdec:
+            return encdec.encdec_decode_step(cfg, params, cache, token, pos, kernels)
         return transformer.lm_decode_step(cfg, params, cache, token, pos, kernels)
 
 
 def cache_shape(cfg, batch: int, max_seq: int):
-    if _module(cfg) is recurrent:
+    """{leaf: (shape, dtype)} of the decode cache."""
+    module = _module(cfg)
+    if module is recurrent:
         return recurrent.xlstm_cache_shape(cfg, batch, max_seq)
+    if module is encdec:
+        return encdec.encdec_cache_shape(cfg, batch, max_seq)
     return transformer.lm_cache_shape(cfg, batch, max_seq)

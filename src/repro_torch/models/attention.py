@@ -1,71 +1,118 @@
-"""GQA attention with RoPE and optional qk-norm (``repro/models/attention.py``).
+"""GQA attention with RoPE, optional QKV bias and qk-norm, and
+cross-attention (``repro/models/attention.py``).
 
-Prefill attention goes through the flash attention kernel; single-token
-decode attention against the KV cache is plain tensor code, as in
-``repro`` (einsum + masked softmax outside any kernel). Decode has static
-shapes: it attends over the whole cache under a position mask and takes
-the position as a device tensor, so a CUDA graph can replay a step.
+Prefill attention goes through the flash attention kernel: causal for
+self-attention, non-causal with Sk ≠ Sq for cross-attention (vision tokens,
+audio frames) and for whisper's encoder. Single-token decode attention
+against a cache is plain tensor code, as in ``repro`` (einsum + softmax
+outside any kernel). Decode has static shapes: self-attention attends over
+the whole cache under a position mask and takes the position as a device
+tensor, so a CUDA graph can replay a step; cross-attention attends over the
+whole cache that prefill filled, with no mask.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .common import (COMPUTE_DTYPE, KERNELS, NEG_INF, PARAM_DTYPE, Kernels, apply_rope,
-                     dense_init, frozen, ones_init, position, rmsnorm)
+                     dense_init, frozen, ones_init, position, rmsnorm, zeros_init)
 
 __all__ = ["Attention", "init_attention"]
 
 
-def init_attention(cfg, gen) -> dict:
+def init_attention(cfg, gen, cross: bool = False) -> dict:
+    """A cross-attention layer has no QKV bias and no qk-norm, as in
+    ``repro``."""
     d, hd = cfg.d_model, cfg.hd
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     p = {"wq": dense_init(gen, (d, nq)), "wk": dense_init(gen, (d, nkv)),
          "wv": dense_init(gen, (d, nkv)), "wo": dense_init(gen, (nq, d))}
-    if cfg.qk_norm:
+    if cfg.qkv_bias and not cross:
+        p["bq"] = zeros_init(gen, (nq,))
+        p["bk"] = zeros_init(gen, (nkv,))
+        p["bv"] = zeros_init(gen, (nkv,))
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ones_init(gen, (hd,))
         p["k_norm"] = ones_init(gen, (hd,))
     return p
 
 
 class Attention(nn.Module):
-    """Self-attention of one decoder layer; weights ``[in, out]`` as in
-    ``repro``, so ``x @ w``."""
+    """One attention layer; weights ``[in, out]`` as in ``repro``, so
+    ``x @ w``. The QKV biases are added in bf16 after the projections."""
 
-    def __init__(self, cfg, p: Mapping[str, torch.Tensor]):
+    def __init__(self, cfg, p: Mapping[str, torch.Tensor], cross: bool = False):
         super().__init__()
-        if cfg.qkv_bias:
-            raise NotImplementedError(
-                "QKV bias (qwen1.5) is not ported yet: ROADMAP.md queue 1, model zoo")
         self.cfg = cfg
         for name in ("wq", "wk", "wv", "wo"):
             setattr(self, name, frozen(p[name], COMPUTE_DTYPE))
-        self.q_norm = frozen(p["q_norm"], PARAM_DTYPE) if cfg.qk_norm else None
-        self.k_norm = frozen(p["k_norm"], PARAM_DTYPE) if cfg.qk_norm else None
+        bias = cfg.qkv_bias and not cross
+        for name in ("bq", "bk", "bv"):
+            setattr(self, name, frozen(p[name], COMPUTE_DTYPE) if bias else None)
+        norm = cfg.qk_norm and not cross
+        self.q_norm = frozen(p["q_norm"], PARAM_DTYPE) if norm else None
+        self.k_norm = frozen(p["k_norm"], PARAM_DTYPE) if norm else None
 
-    def project_qkv(self, x, positions, kernels: Kernels = KERNELS):
-        """x [B, S, d] → q [B, S, H, hd], k / v [B, S, KV, hd] (bf16), with
-        qk-norm and RoPE applied to q and k."""
+    def _heads(self, x, w, b, n_heads):
+        y = x @ w
+        if b is not None:
+            y = y + b
+        return y.unflatten(-1, (n_heads, self.cfg.hd))
+
+    def project_q(self, x, positions: Optional[torch.Tensor], kernels: Kernels = KERNELS):
+        """x [B, S, d] → q [B, S, H, hd] (bf16); qk-norm, then RoPE at
+        ``positions`` unless they are None."""
         cfg = self.cfg
-        q = (x @ self.wq).unflatten(-1, (cfg.n_heads, cfg.hd))
-        k = (x @ self.wk).unflatten(-1, (cfg.n_kv_heads, cfg.hd))
-        v = (x @ self.wv).unflatten(-1, (cfg.n_kv_heads, cfg.hd))
+        q = self._heads(x, self.wq, self.bq, cfg.n_heads)
         if self.q_norm is not None:
             q = rmsnorm(q, self.q_norm, cfg.norm_eps, kernels)
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps, kernels)
-        return (apply_rope(q, positions, cfg.rope_theta),
-                apply_rope(k, positions, cfg.rope_theta), v)
+        return q if positions is None else apply_rope(q, positions, cfg.rope_theta)
 
-    def forward(self, x, positions, kernels: Kernels = KERNELS
+    def project_kv(self, x, positions: Optional[torch.Tensor], kernels: Kernels = KERNELS):
+        """x [B, S, d] → k, v [B, S, KV, hd] (bf16); k-norm and RoPE on k as
+        :meth:`project_q` does on q."""
+        cfg = self.cfg
+        k = self._heads(x, self.wk, self.bk, cfg.n_kv_heads)
+        v = self._heads(x, self.wv, self.bv, cfg.n_kv_heads)
+        if self.k_norm is not None:
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps, kernels)
+        if positions is not None:
+            k = apply_rope(k, positions, cfg.rope_theta)
+        return k, v
+
+    def forward(self, x, positions, kernels: Kernels = KERNELS, *, causal: bool = True,
+                kv_x: Optional[torch.Tensor] = None, rope: bool = True
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-        """Causal attention over the whole sequence (prefill), positions
-        from 0. Returns (out [B, S, d], (k, v))."""
-        q, k, v = self.project_qkv(x, positions, kernels)
-        o = kernels.attention(q, k, v, True)
+        """Attention over a whole sequence (prefill), positions from 0.
+        Self-attention by default; ``kv_x`` [B, Sk, d] makes it
+        cross-attention (keys and values from ``kv_x``). ``rope=False``
+        leaves q and k unrotated. Returns (out [B, S, d], (k, v))."""
+        pos = positions if rope else None
+        q = self.project_q(x, pos, kernels)
+        k, v = self.project_kv(x if kv_x is None else kv_x, pos, kernels)
+        o = kernels.attention(q, k, v, causal)
         return o.flatten(-2) @ self.wo, (k, v)
+
+    def _attend(self, q, cache_k, cache_v, visible: Optional[torch.Tensor]) -> torch.Tensor:
+        """One query position q [B, 1, H, hd] against the cache [B, S, KV,
+        hd]: scores, softmax and the weighted sum accumulate in float32, the
+        weights rounded to bf16 first, as ``repro`` does; keys where
+        ``visible`` is False are masked to ``NEG_INF``."""
+        cfg = self.cfg
+        k = cache_k.to(torch.float32)
+        v = cache_v.to(torch.float32)
+        b, _, kv, hd = k.shape
+        qg = q.reshape(b, 1, kv, cfg.n_heads // kv, hd).to(torch.float32)
+        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * (hd ** -0.5)
+        if visible is not None:
+            s = s.masked_fill(~visible, NEG_INF)
+        w = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE).to(torch.float32)
+        o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+        return o.reshape(b, 1, cfg.n_heads * hd).to(COMPUTE_DTYPE) @ self.wo
 
     def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
         """One token x [B, 1, d] at position ``pos`` (an int or a 0-d int64
@@ -73,23 +120,20 @@ class Attention(nn.Module):
         this token's k and v into the cache in place at ``pos`` (``repro``
         makes a new cache by a one-hot update, which gives the same values)
         and attends over the whole cache with the positions after ``pos``
-        masked to ``NEG_INF``, as ``repro`` does: no shape and no host read
-        depends on ``pos``. Scores, softmax and the weighted sum accumulate
-        in float32, the weights rounded to bf16 first, as ``repro`` does."""
-        cfg = self.cfg
+        masked, as ``repro`` does: no shape and no host read depends on
+        ``pos``."""
         pos = position(pos, x.device)
-        q, k_new, v_new = self.project_qkv(x, pos.view(1, 1), kernels)
+        q = self.project_q(x, pos.view(1, 1), kernels)
+        k_new, v_new = self.project_kv(x, pos.view(1, 1), kernels)
         index = pos.view(1)
         cache_k.index_copy_(1, index, k_new)
         cache_v.index_copy_(1, index, v_new)
-        k = cache_k.to(torch.float32)
-        v = cache_v.to(torch.float32)
-        b, s_max, kv, hd = k.shape
-        qg = q.reshape(b, 1, kv, cfg.n_heads // kv, hd).to(torch.float32)
-        s = torch.einsum("bqkgh,bskh->bkgqs", qg, k) * (hd ** -0.5)
-        visible = torch.arange(s_max, device=x.device) <= pos
-        s = s.masked_fill(~visible, NEG_INF)
-        w = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE).to(torch.float32)
-        o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
-        o = o.reshape(b, 1, cfg.n_heads * hd).to(COMPUTE_DTYPE)
-        return o @ self.wo
+        visible = torch.arange(cache_k.shape[1], device=x.device) <= pos
+        return self._attend(q, cache_k, cache_v, visible)
+
+    def decode_cross(self, x, cache_k, cache_v, kernels: Kernels = KERNELS):
+        """One token x [B, 1, d] against a cross-attention cache [B, Sk, KV,
+        hd] that prefill filled: q only is projected (``repro`` also projects
+        k and v of a stand-in and discards them), no RoPE, no mask, no
+        update."""
+        return self._attend(self.project_q(x, None, kernels), cache_k, cache_v, None)

@@ -30,7 +30,7 @@ NEG_INF = -1e30  # the masked scores' fill, as repro/models/attention.py has it
 
 __all__ = [
     "COMPUTE_DTYPE", "PARAM_DTYPE", "NEG_INF", "Kernels", "KERNELS", "PLAIN", "dense_init",
-    "ones_init", "frozen", "rmsnorm", "apply_rope", "position",
+    "ones_init", "zeros_init", "frozen", "rmsnorm", "layernorm", "apply_rope", "position",
 ]
 
 
@@ -79,6 +79,10 @@ def ones_init(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
     return torch.ones(shape, device=gen.device, dtype=PARAM_DTYPE)
 
 
+def zeros_init(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
+    return torch.zeros(shape, device=gen.device, dtype=PARAM_DTYPE)
+
+
 def frozen(t: torch.Tensor, dtype: torch.dtype) -> nn.Parameter:
     """An inference-only parameter holding ``t`` cast to ``dtype``."""
     return nn.Parameter(t.to(dtype), requires_grad=False)
@@ -87,6 +91,17 @@ def frozen(t: torch.Tensor, dtype: torch.dtype) -> nn.Parameter:
 def rmsnorm(x, w, eps: float = 1e-5, kernels: Kernels = KERNELS) -> torch.Tensor:
     """RMSNorm over the last axis; the result is in ``COMPUTE_DTYPE``."""
     return kernels.rmsnorm(x, w, eps).to(COMPUTE_DTYPE)
+
+
+def layernorm(x, w, b, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (``repro``'s ``layernorm``;
+    plain tensor code in both packages); the result is in ``COMPUTE_DTYPE``.
+    ``jnp.var`` is the population variance: ``correction=0``."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * w.to(torch.float32) + b.to(torch.float32)).to(COMPUTE_DTYPE)
 
 
 def _rope_angles(positions, head_dim: int, theta: float):

@@ -1,0 +1,130 @@
+"""Mixture-of-Experts: top-k routing with capacity (``repro/models/moe.py``).
+
+The routing is ``repro``'s exactly: router logits in bf16, the softmax in
+float32, the top k in ``jax.lax.top_k``'s order (the larger probability
+first, the lower expert index first on a tie: bf16 logits tie often), the
+gates renormalised over
+the chosen experts with a floor of 1e-9. Tokens go in groups of
+``min(1024, S)``; each expert has C = max(ceil(k · group · cf / E), 4) slots
+a group, filled in the order of the flattened (token, choice) index t·k + j;
+a choice at a queue position ≥ C is dropped (adds zero).
+
+``repro`` dispatches and combines with a dense [G, t, k, E, C] one-hot
+(about 336 MB in float32 at granite's b4 × 512). Here both go by index: each
+kept choice is scattered into its (expert, slot) row, and the expert
+outputs are gathered back from the same rows. Every slot holds at most one
+choice, so the two give the same sums. The expert products are batched
+bf16 matmuls, as ``repro``'s einsums are plain XLA outside any kernel. No
+step reads a value on the host, so a decode step stays capturable.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .common import COMPUTE_DTYPE, dense_init, frozen
+
+__all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing"]
+
+GROUP_SIZE = 1024
+
+
+def init_moe(cfg, gen) -> dict:
+    m = cfg.moe
+    d, ff, e = cfg.d_model, m.d_ff_expert, m.n_experts
+    return {"router": dense_init(gen, (d, e)), "w1": dense_init(gen, (e, d, ff)),
+            "w3": dense_init(gen, (e, d, ff)), "w2": dense_init(gen, (e, ff, d))}
+
+
+def moe_capacity(m, group: int) -> int:
+    """Slots per expert and group."""
+    return max(int(math.ceil(m.top_k * group * m.capacity_factor / m.n_experts)), 4)
+
+
+class Routing(NamedTuple):
+    """Each (group, token, choice)'s expert ``sel``, gate, queue position
+    ``pos`` and whether it fits (``kept``: pos < C); all [G, t, k]."""
+
+    sel: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    kept: torch.Tensor
+
+
+def route(probs: torch.Tensor, top_k: int, capacity: int) -> Routing:
+    """Float32 router probabilities [G, t, E] → :class:`Routing`. The top
+    k are taken on a unique int64 key per expert, the probability's bits
+    (ordered as its value, since it is not negative) above the reversed
+    expert index, so that a tie goes to the lower index, ``jax.lax.top_k``'s
+    order, whatever the sort's stability on any device (``torch.topk`` on
+    the probabilities leaves it unspecified). Positions are a cumsum over
+    the flattened (token, choice) index t·k + j, token-major."""
+    g, t, e = probs.shape
+    experts = torch.arange(e, device=probs.device)
+    key = (probs.contiguous().view(torch.int32).to(torch.int64) << 32) | (e - 1 - experts)
+    sel = torch.topk(key, top_k, dim=-1).indices
+    gate = torch.gather(probs, -1, sel)
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    onehot = (sel[..., None] == experts).to(torch.int32)
+    # the scan runs along the last axis in int32: along the token axis it
+    # was an outer-dim int64 scan, most of an MoE prefill's card time
+    queue = onehot.reshape(g, t * top_k, e).transpose(1, 2)
+    before = torch.cumsum(queue, dim=-1, dtype=torch.int32) - queue
+    pos = (before.transpose(1, 2).reshape(g, t, top_k, e) * onehot).sum(dim=-1)
+    return Routing(sel, gate, pos, pos < capacity)
+
+
+class MoE(nn.Module):
+    """Top-k routed SwiGLU experts, weights stacked on the expert axis:
+    router [d, E], w1 / w3 [E, d, ff], w2 [E, ff, d], all bf16."""
+
+    def __init__(self, cfg, p: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        for name in ("router", "w1", "w3", "w2"):
+            setattr(self, name, frozen(p[name], COMPUTE_DTYPE))
+
+    def router_probs(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, d] → float32 router probabilities [G, group, E] of its
+        token groups."""
+        b, s, d = x.shape
+        group = min(GROUP_SIZE, s)
+        if (b * s) % group:
+            raise ValueError(f"{b} x {s} tokens do not split into groups of {group}")
+        logits = x.reshape(b * s // group, group, d) @ self.router
+        return torch.softmax(logits.to(torch.float32), dim=-1)
+
+    def routing(self, x: torch.Tensor) -> Routing:
+        """x [B, S, d] → the routing of its token groups."""
+        m = self.cfg.moe
+        probs = self.router_probs(x)
+        return route(probs, m.top_k, moe_capacity(m, probs.shape[1]))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, S, d] bf16 → [B, S, d] bf16."""
+        m = self.cfg.moe
+        b, s, d = x.shape
+        r = self.routing(x)
+        g, t, k = r.sel.shape
+        e, c = m.n_experts, moe_capacity(m, t)
+        # (expert, slot) row of each kept choice; dropped ones go to a spare
+        # row past the last, which the experts never read
+        row = torch.where(r.kept, r.sel * c + r.pos, torch.full_like(r.sel, e * c))
+        row = row.reshape(g, t * k)
+        xg = x.reshape(g, t, 1, d).expand(g, t, k, d).reshape(g, t * k, d)
+        xe = x.new_zeros(g, e * c + 1, d)
+        xe.scatter_(1, row[..., None].expand(g, t * k, d), xg)
+        xe = xe[:, :e * c].reshape(g, e, c, d).transpose(0, 1).reshape(e, g * c, d)
+        h = F.silu((xe @ self.w1).to(torch.float32)).to(COMPUTE_DTYPE) * (xe @ self.w3)
+        ye = (h @ self.w2).reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+        ye = torch.cat([ye, ye.new_zeros(g, 1, d)], dim=1)
+        picked = torch.gather(ye, 1, row[..., None].expand(g, t * k, d)).reshape(g, t, k, d)
+        # repro's combine weights are the gates in float32 rounded to bf16
+        w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(COMPUTE_DTYPE)
+        y = (w.to(torch.float32)[..., None] * picked.to(torch.float32)).sum(dim=2)
+        return y.to(COMPUTE_DTYPE).reshape(b, s, d)
