@@ -84,8 +84,10 @@ version on the card, and drives the port's paths:
 12. the model zoo (``zoo``), every earlier model freed first: tinyllama-1.1b,
    qwen1.5-0.5b, granite-moe-1b-a400m, llama-3.2-vision-11b (b4 × p512 ×
    g16), whisper-large-v3 (b4 × p128 × g16 over 1500 audio frames),
-   phi3.5-moe-42b-a6.6b (16 of its 32 layers, b4 × p512 × g16) and
-   deepseek-coder-33b (b1 × p512 × g8), each served at full width with
+   phi3.5-moe-42b-a6.6b (16 of its 32 layers, b4 × p512 × g16),
+   deepseek-coder-33b (b1 × p512 × g8) and zamba2-7b (81 layers: 13 groups
+   of 6 Mamba2 blocks, each followed by the shared attention block, and 3
+   tail blocks; b4 × p512 × g16 and b1 × p2048 × g8), each served at full width with
    random weights from seed 0 through ``serve`` and the graphed decode
    (launches, one capture per request shape, the parameters held beside
    ``param_count()``), the flash kernel held in every prefill cell (causal
@@ -96,9 +98,20 @@ version on the card, and drives the port's paths:
    random stand-in with the vlm gates nonzero), the graphed decode bitwise
    equal to eager, a warm request's prefill ms and decode ms/token, the
    MoE models' dropped share and routing (kernel against plain path; the
-   card's against the CPU's), and one planned whisper request on a time
-   table the planner CLI builds on the sweep kernel, with one power
-   failure, its tokens equal to unplanned serving's.
+   card's against the CPU's), one planned whisper and one planned zamba2
+   request, each on a time table the planner CLI builds on the sweep
+   kernel, with one power failure, its tokens equal to unplanned serving's;
+   and for zamba2, its chunked prefill against its own recurrence (the last
+   128 prompt tokens through the graphed decode after a prefill of the
+   rest, against one prefill: every layer's float32 state and the last
+   logits within twice a rounding reference's reading, a wrong decay in
+   one chunk beyond it);
+13. the activation solvers (``planners``): ``plan_offload`` at 2·Q_min,
+   ``plan_remat`` at 64·Q_min and ``plan_pipeline`` with 8 stages for all
+   ten architectures at full width (b16 × 4096; remat b4 × 4096), each
+   within its budget, offload and remat ``Infeasible`` at Q_min / 2, with
+   ``h100_pipeline_model``'s constants (and a measured card-to-card copy
+   when more than one card is visible).
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -532,6 +545,8 @@ RMS_CASES = {
     "xlstm_prefill_b1_d2048": (1024, 2048, torch.bfloat16),
     "xlstm_decode_d2048": (4, 2048, torch.bfloat16),
     "xlstm_f32_prefill_d2048": (2048, 2048, torch.float32),
+    "zamba_shared_cat_d7168": (2048, 7168, torch.bfloat16),
+    "zamba_prefill_d3584": (2048, 3584, torch.bfloat16),
     "odd_f32": (333, 4100, torch.float32),
     "odd_warp_bf16": (77, 200, torch.bfloat16),
     "widest_row_f32": (9, 4096, torch.float32),
@@ -543,6 +558,7 @@ FLASH_CASES = {
     "serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.bfloat16),
     "hd64": (2, 256, 256, 16, 4, 64, True, torch.bfloat16),
     "hd112_zamba2_mha": (1, 512, 512, 32, 32, 112, True, torch.bfloat16),
+    "zamba_b4_s512_hd112": (4, 512, 512, 32, 32, 112, True, torch.bfloat16),
     "noncausal_sk_ne_sq": (2, 100, 300, 8, 2, 128, False, torch.bfloat16),
     "f32_serve_b4_s512": (4, 512, 512, 32, 8, 128, True, torch.float32),
     "f32_serve_b1_s1000": (1, 1000, 1000, 32, 8, 128, True, torch.float32),
@@ -1371,7 +1387,8 @@ def rmsnorm_entry(dev, launches, errs):
 
     by_shape = {}
     for name in ("prefill_d2560", "prefill_q_norm", "prefill_k_norm", "decode_d2560",
-                 "xlstm_prefill_d2048", "xlstm_prefill_b1_d2048", "xlstm_decode_d2048"):
+                 "xlstm_prefill_d2048", "xlstm_prefill_b1_d2048", "xlstm_decode_d2048",
+                 "zamba_prefill_d3584", "zamba_shared_cat_d7168"):
         n, d, dtype = RMS_CASES[name]
         x, w = rms_inputs(RMS_CASES[name], dev)
         fn = lambda: rmsnorm_rows_cuda(x, w, 1e-6)  # noqa: E731
@@ -1405,10 +1422,10 @@ def rmsnorm_entry(dev, launches, errs):
 
 
 def flash_entry(dev, launches, errs):
-    """Times and bounds of the flash kernel at qwen3-4b's two prefill shapes
-    and the zoo's non-causal ones (llama-3.2-vision's cross-attention,
-    whisper's encoder); the headline numbers are qwen3-4b's b4 × 512
-    request's."""
+    """Times and bounds of the flash kernel at qwen3-4b's two prefill shapes,
+    the zoo's non-causal ones (llama-3.2-vision's cross-attention,
+    whisper's encoder) and zamba2's shared attention (hd 112, MHA); the
+    headline numbers are qwen3-4b's b4 × 512 request's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
@@ -1416,7 +1433,7 @@ def flash_entry(dev, launches, errs):
 
     by_shape = {}
     for name in ("serve_b4_s512", "serve_b1_s1000", "vlm_cross_b4_s512_sk1601",
-                 "whisper_encoder_b4_s1500"):
+                 "whisper_encoder_b4_s1500", "zamba_b4_s512_hd112"):
         b, sq, sk, h, kv, hd, causal, _ = FLASH_CASES[name]
         q, k, v = flash_inputs(FLASH_CASES[name], dev)
         fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=causal)  # noqa: E731
@@ -1450,8 +1467,8 @@ def flash_entry(dev, launches, errs):
         **{k: head[k] for k in ("ms", "ms_from", "wrapper_ms", "plain_ms", "bound_ms",
                                 "bound_by", "library_ms")},
         "library_call": "scaled_dot_product_attention(enable_gqa=True), [B, H, S, hd]",
-        "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000, the vlm cross "
-                 "and whisper encoder shapes below",
+        "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000, the vlm cross, "
+                 "whisper encoder and zamba2 (hd 112, MHA) shapes below",
         "by_shape": by_shape,
     }
 
@@ -1604,14 +1621,19 @@ def serving_launches() -> dict:
 def step_launches(cfg) -> tuple:
     """({kernel: launches} of one prefill, of one decode step) of ``cfg``:
     one RMSNorm launch per norm site (a step's and a prefill's alike: ln1,
-    ln2, q- and k-norm of a self layer, the norm of a vlm cross layer, the
-    final norm; whisper's LayerNorms are plain), one flash launch per
-    attention a prefill (whisper: encoder, decoder self and cross), or one
-    mLSTM launch per mLSTM block a prefill."""
+    ln2, q- and k-norm of a self layer, the norm of a vlm cross layer, a
+    Mamba2 block's norm, the shared block's 2d and MLP norms, the final
+    norm; whisper's LayerNorms are plain), one flash launch per attention a
+    prefill (whisper: encoder, decoder self and cross; zamba2: each shared
+    application), or one mLSTM launch per mLSTM block a prefill."""
     if cfg.family == "ssm":
         norms = cfg.n_layers + 1
         pre = {"flash_attention": 0,
                "mlstm_chunk": cfg.n_layers - cfg.n_layers // cfg.slstm_every}
+    elif cfg.family == "hybrid":  # a norm per Mamba2 block, two per shared application
+        n_groups = cfg.n_layers // cfg.attn_every
+        norms = cfg.n_layers + 2 * n_groups + 1
+        pre = {"flash_attention": n_groups, "mlstm_chunk": 0}
     elif cfg.family == "encdec":
         norms = 0
         pre = {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers, "mlstm_chunk": 0}
@@ -2379,6 +2401,7 @@ ZOO = (
     ("whisper-large-v3", None, ((4, 128, 16),)),
     ("phi3.5-moe-42b-a6.6b", 16, ((4, 512, 16),)),
     ("deepseek-coder-33b", None, ((1, 512, 8),)),
+    ("zamba2-7b", None, ((4, 512, 16), (1, 2048, 8))),
 )
 # The zoo's parity control: the plain path with its RMSNorm and attention
 # outputs × (1 + 2^-3) past position 64 (a fault of both kernels). qwen3-4b's
@@ -2387,9 +2410,10 @@ ZOO = (
 # most of the residual stream.
 ZOO_CONTROL = 2.0 ** -3
 ZOO_GATE = 0.5          # the vlm cross gates of the second prefill (repro's are 0)
-# whisper's planned request: (batch, prompt, generated), decode steps per
-# energy cycle, the cycle after which a power failure is injected.
-WHISPER_PLANNED = ((1, 128, 8), 3, 1)
+# The zoo's planned requests, each on a time table the planner CLI builds
+# for its bucket: (batch, prompt, generated), decode steps per energy cycle,
+# the cycle after which a power failure is injected.
+ZOO_PLANNED = {"whisper-large-v3": ((1, 128, 8), 3, 1), "zamba2-7b": ((1, 512, 8), 3, 1)}
 
 
 def held_params(cfg, max_seq: int) -> int:
@@ -2397,11 +2421,20 @@ def held_params(cfg, max_seq: int) -> int:
     reference's parameter tree): q/k-norm weights, QKV biases, a tied head
     (none of its own), the vlm's self and cross layers (a cross layer: its
     attention, one norm and a gate), whisper's LayerNorm biases, GELU-MLP
-    biases and learned positions (``max_seq`` decoder rows)."""
+    biases and learned positions (``max_seq`` decoder rows), zamba2's Mamba2
+    blocks (in_proj with its B, C and dt columns, the conv, A_log, dt_bias,
+    D, out_proj, a norm) and its one shared block (q/k/v from 2d, a 2d norm,
+    an MLP norm, SwiGLU)."""
     d, hd, ff = cfg.d_model, cfg.hd, cfg.d_ff
     nq, nkv = cfg.n_heads * hd, cfg.n_kv_heads * hd
     proj = 2 * d * nq + 2 * d * nkv
     attn = proj + ((nq + 2 * nkv) if cfg.qkv_bias else 0) + (2 * hd if cfg.qk_norm else 0)
+    if cfg.family == "hybrid":
+        d_in, n = cfg.ssm_expand * d, cfg.ssm_state
+        h = d_in // cfg.ssm_headdim
+        mamba = d * (2 * d_in + 2 * n + h) + 4 * (d_in + 2 * n) + 3 * h + d_in * d + d
+        shared = 2 * d * (nq + 2 * nkv) + nq * d + 3 * d + 3 * d * ff
+        return 2 * cfg.vocab * d + d + cfg.n_layers * mamba + shared
     if cfg.family == "encdec":
         mlp = 2 * d * ff + ff + d
         return (2 * cfg.vocab * d + (cfg.n_audio_frames + max_seq) * d + 4 * d
@@ -2691,26 +2724,249 @@ def moe_routing(cfg, params, dev, request) -> dict:
     return row
 
 
-def whisper_planned(cfg, params, dev, workdir: Path) -> tuple:
-    """whisper-large-v3's time table built by the planner CLI on the sweep
-    kernel for the WHISPER_PLANNED request's bucket, then the request served
-    planned on it with one power failure (:func:`serve_planned`: tokens
-    equal to unplanned serving's). Returns (the build's sweep launches, the
-    planned run's kernel launches)."""
+# zamba2's chunked prefill against its recurrence: the last RECURRENCE_TOKENS
+# prompt positions fed one at a time after a prefill of the rest, against
+# one prefill of the whole prompt. The layer check's control is that one
+# prefill with the last chunk's log-decays × (1 + RECURRENCE_CONTROL): a
+# decay rate doubled in one chunk.
+RECURRENCE_TOKENS = 128
+RECURRENCE_CONTROL = 1.0
+
+
+def _mamba_cells(params) -> list:
+    return [blk.cell for grp in params.groups for blk in grp] + [blk.cell for blk in params.tail]
+
+
+@contextlib.contextmanager
+def mamba2_decays(params, seed: int = 13):
+    """Every Mamba2 block's A_log and dt_bias set to Mamba2's published
+    initialisation inside the block (A uniform in [1, 16], dt log-uniform
+    in [1e-3, 1e-1] through the inverse softplus; seeded), restored after.
+    With ``repro``'s zeros a head keeps exp(-softplus(dt)) of its state a
+    step, a few tokens' memory, and nothing crosses a 128-token chunk."""
+    cells = _mamba_cells(params)
+    saved = [(c.A_log.clone(), c.dt_bias.clone()) for c in cells]
+    dev = cells[0].A_log.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    for c in cells:
+        h = c.A_log.shape[0]
+        c.A_log.copy_(torch.log(1 + 15 * torch.rand(h, generator=gen, device=dev)))
+        dt = torch.exp(lo + (hi - lo) * torch.rand(h, generator=gen, device=dev))
+        c.dt_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+    try:
+        yield
+    finally:
+        for c, (a, b) in zip(cells, saved):
+            c.A_log.copy_(a)
+            c.dt_bias.copy_(b)
+
+
+@contextlib.contextmanager
+def mamba2_decay_fault(params, last: int, excess: float):
+    """Inside the block, every Mamba2 prefill's log-decays at the last
+    ``last`` positions × (1 + ``excess``): one chunk's decay wrong."""
+    cells = _mamba_cells(params)
+    for c in cells:
+        def discretize(dt, c=c, fn=type(c)._discretize):
+            logdec, dt_eff = fn(c, dt)
+            if logdec.dim() == 3:  # [B, S, H]: a prefill, not a decode step
+                logdec = logdec.clone()
+                logdec[:, -last:] *= 1.0 + excess
+            return logdec, dt_eff
+        c._discretize = discretize
+    try:
+        yield
+    finally:
+        for c in cells:
+            del c._discretize
+
+
+def _last_one_step(t, last: int, gen):
+    """``t`` with every element at its last ``last`` positions (axis 1) one
+    bf16 step off, in a random direction."""
+    t = t.clone()
+    t[:, -last:] = _one_step(t[:, -last:], 1.0, gen)
+    return t
+
+
+@contextlib.contextmanager
+def mamba2_one_step(params, last: int, gen):
+    """Inside the block, every Mamba2 block's input and output at the last
+    ``last`` positions one bf16 step off at every element."""
+    cells = _mamba_cells(params)
+    for c in cells:
+        def forward(x, state=None, c=c, fn=type(c).forward):
+            y, st = fn(c, _last_one_step(x, last, gen), state)
+            return _last_one_step(y, last, gen), st
+        c.forward = forward
+    try:
+        yield
+    finally:
+        for c in cells:
+            del c.forward
+
+
+def _state_rel(got, want):
+    """max|got − want| / max|want| of each layer's state (axis 0), on the host."""
+    got, want = got.flatten(1), want.flatten(1)
+    return ((got - want).abs().amax(dim=1) / want.abs().amax(dim=1)).cpu()
+
+
+def mamba2_layer_checks(cfg, params, dev, request, gen) -> dict:
+    """Each Mamba2 block alone on the input it has in one prefill of
+    ``request``: its chunked pass over all p positions against a chunked
+    pass over p − 128 then 128 single steps, on the same bf16 input, read as
+    :func:`_state_rel` of the float32 states. The limit of each layer is
+    twice the reading of its chunked pass on that input with every element
+    of the last 128 positions one bf16 step off; the control, the last
+    chunk's log-decays × (1 + RECURRENCE_CONTROL), must exceed it in every
+    layer."""
+    from repro_torch.models import api
+
+    b, p, g = request
+    head = p - RECURRENCE_TOKENS
+    cells, inputs = _mamba_cells(params), []
+    for c in cells:
+        def forward(x, state=None, c=c, fn=type(c).forward):
+            inputs.append(x)
+            return fn(c, x, state)
+        c.forward = forward
+    try:
+        api.prefill(cfg, params, {"tokens": _tokens(cfg, b, p, dev, 43 + b)}, p + g)
+    finally:
+        for c in cells:
+            del c.forward
+    rec, ref, ctl = [], [], []
+    for c, u in zip(cells, inputs):
+        whole = c(u)[1]["ssm"]
+        ref.append(c(_last_one_step(u, RECURRENCE_TOKENS, gen))[1]["ssm"])
+        with mamba2_decay_fault(params, RECURRENCE_TOKENS, RECURRENCE_CONTROL):
+            ctl.append(c(u)[1]["ssm"])
+        _, st = c(u[:, :head])
+        for t in range(head, p):
+            _, st = c.decode(u[:, t:t + 1], st)
+        rec.append(st["ssm"])
+        rec[-1], ref[-1], ctl[-1] = (_state_rel(x[None], whole[None]) for x in
+                                     (rec[-1], ref[-1], ctl[-1]))
+    del inputs
+    rec, ref, ctl = (torch.cat(x) for x in (rec, ref, ctl))
+    limit = 2 * ref
+    return {"batch": b, "prompt": p, "layers": len(cells),
+            "state_largest_share_of_limit": float((rec / limit).max()),
+            "control_smallest_share_of_limit": float((ctl / limit).min()),
+            "state_rel_max": float(rec.max()),
+            "state_limit_min_max": [float(limit.min()), float(limit.max())],
+            "state_rel_by_layer": rec.tolist(), "state_limit_by_layer": limit.tolist(),
+            "control_rel_by_layer": ctl.tolist()}
+
+
+def zamba_recurrence(cfg, params, dev, requests) -> dict:
+    """zamba2's chunked prefill against its own recurrence at full width,
+    with Mamba2's published decays (:func:`mamba2_decays`) so that state
+    crosses chunks. For each request (b, p): a prefill of p − 128 tokens,
+    then the last 128 prompt tokens teacher-forced through the graphed
+    decode (``_step_fns``: no new capture), against one prefill of all p
+    tokens: every layer's float32 ``ssm`` state read as :func:`_state_rel`,
+    the last logits per row as ‖Δ‖₂/‖·‖₂, each within twice the reading of
+    a rounding reference: the one prefill with every Mamba2 input and output
+    and every attention output one bf16 step off at every element of the
+    last 128 positions, where the two forms differ
+    (:func:`mamba2_one_step`). At depth, random weights decorrelate the
+    states after any such change, so this end-to-end reading cannot tell a
+    fault from rounding; :func:`mamba2_layer_checks` holds each block on a
+    shared input, with a control."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS
+
+    gen = torch.Generator(device=dev).manual_seed(29)
+
+    def att(q, k, v, causal):
+        return _last_one_step(KERNELS.attention(q, k, v, causal), RECURRENCE_TOKENS, gen)
+
+    rounding = dataclasses.replace(KERNELS, attention=att)
+
+    def states(cache):
+        tail = [] if cache["tail"] is None else [cache["tail"]["ssm"]]
+        return torch.cat([cache["groups"]["ssm"].flatten(0, 1)] + tail)
+
+    out = []
+    with mamba2_decays(params):
+        for b, p, g in requests:
+            tokens = _tokens(cfg, b, p, dev, 41 + b)
+            prefill, decode = S._step_fns(cfg.name, False, b, p + g, dev, donate=True)
+            captures0 = S.TRACE_COUNT["decode"]
+            whole_logits, whole = prefill(params, {"tokens": tokens})
+            s_whole = states(whole)
+            del whole
+            with mamba2_one_step(params, RECURRENCE_TOKENS, gen):
+                ref_logits, ref_cache = api.prefill(cfg, params, {"tokens": tokens}, p + g,
+                                                    rounding)
+            limit = 2 * _state_rel(states(ref_cache), s_whole)
+            del ref_cache
+            head = p - RECURRENCE_TOKENS
+            logits, cache = prefill(params, {"tokens": tokens[:, :head]})
+            for t in range(head, p):
+                logits, cache = decode(params, cache, tokens[:, t:t + 1], t)
+            rec = _state_rel(states(cache), s_whole)
+            del cache, s_whole
+            out.append({"batch": b, "prompt": p, "chunks": p // 128,
+                        "decode_steps": RECURRENCE_TOKENS, "layers": len(limit),
+                        "state_largest_share_of_limit": float((rec / limit).max()),
+                        "state_rel_max": float(rec.max()),
+                        "state_limit_min_max": [float(limit.min()), float(limit.max())],
+                        "state_rel_by_layer": rec.tolist(),
+                        "state_limit_by_layer": limit.tolist(),
+                        "logits_row_rel_max": float(_row_rel(logits, whole_logits).max()),
+                        "logits_limit": 2 * float(_row_rel(ref_logits, whole_logits).max()),
+                        "new_captures": S.TRACE_COUNT["decode"] - captures0})
+        layers = mamba2_layer_checks(cfg, params, dev, requests[0], gen)
+    torch.cuda.synchronize()
+    row = {"phase": "zamba_chunked_prefill_vs_recurrence", "arch": cfg.name, "requests": out,
+           "layer_checks": layers,
+           "decays": "Mamba2's initialisation: A in U[1, 16], dt log-uniform in [1e-3, 1e-1]",
+           "reading": "per layer max|Δssm|/max|ssm| of the one prefill; last logits per row "
+                      "‖Δ‖₂/‖·‖₂",
+           "limit": "2 x the reading of a rounding reference with every element of the last "
+                    f"{RECURRENCE_TOKENS} positions one bf16 step off: end to end, every Mamba2 "
+                    "input and output and every attention output; a layer alone, its input",
+           "control": f"a layer alone, the last chunk's log-decays x (1 + {RECURRENCE_CONTROL})"}
+    emit(row)
+    for r in out:
+        if (r["state_largest_share_of_limit"] > 1.0 or r["logits_row_rel_max"] > r["logits_limit"]
+                or r["new_captures"]):
+            raise AssertionError(f"{cfg.name}: chunked prefill off its recurrence: {r}")
+    if layers["state_largest_share_of_limit"] > 1.0:
+        raise AssertionError(f"{cfg.name}: a Mamba2 block's chunked pass off its recurrence")
+    if layers["control_smallest_share_of_limit"] <= 1.0:
+        raise AssertionError(f"{cfg.name}: the decay control passed the layer check: the "
+                             "check does not discriminate")
+    return {"requests": [{k: v for k, v in r.items() if not k.endswith("_by_layer")}
+                         for r in out],
+            "layer_checks": {k: v for k, v in layers.items() if not k.endswith("_by_layer")}}
+
+
+def zoo_planned(cfg, params, dev, workdir: Path) -> tuple:
+    """``cfg``'s time table built by the planner CLI on the sweep kernel for
+    its ZOO_PLANNED request's bucket, then the request served planned on it
+    with one power failure (:func:`serve_planned`: tokens equal to
+    unplanned serving's). Returns (the build's sweep launches, the planned
+    run's kernel launches)."""
     from repro_torch.core.plan_table import PlanTable
     from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
     from repro_torch.launch import planner
 
-    (b, p, g), per_cycle, crash_after = WHISPER_PLANNED
+    (b, p, g), per_cycle, crash_after = ZOO_PLANNED[cfg.name]
     workdir.mkdir(parents=True, exist_ok=True)
-    out = workdir / "whisper_time.npz"
+    out = workdir / f"{cfg.name}_time.npz"
     sweeps0 = sweep_columns_cuda.launches
     if planner.main(["--arch", cfg.name, "--full", "--device", "cuda", "--buckets",
                      f"{b}x{p + g}", "--out", str(out)]) != 0:
-        raise AssertionError("the planner CLI failed on whisper-large-v3")
+        raise AssertionError(f"the planner CLI failed on {cfg.name}")
     sweeps = sweep_columns_cuda.launches - sweeps0
     if sweeps < 1:
-        raise AssertionError("whisper's table was built without the sweep kernel")
+        raise AssertionError(f"{cfg.name}'s table was built without the sweep kernel")
     launches = serve_planned(cfg, params, dev, PlanTable.load(str(out)), (b, p, g), per_cycle,
                              crash_after)
     return sweeps, launches
@@ -2752,9 +3008,10 @@ def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
     warm = {}
     S.serve(cfg.name, b, p, g, smoke=False, seed=0, device=dev, params=params, report=warm)
     routing = moe_routing(cfg, params, dev, requests[0]) if cfg.family == "moe" else None
+    recurrence = zamba_recurrence(cfg, params, dev, requests) if cfg.family == "hybrid" else None
     sweeps = 0
-    if cfg.family == "encdec":
-        sweeps, by_path[f"zoo {arch} planned"] = whisper_planned(cfg, params, dev, workdir)
+    if arch in ZOO_PLANNED:
+        sweeps, by_path[f"zoo {arch} planned"] = zoo_planned(cfg, params, dev, workdir)
     n_params = sum(t.numel() for t in params.parameters())
     emit({"phase": "zoo", "arch": arch, "reduced": reduced, "family": cfg.family,
           "layers": cfg.n_layers, "d_model": cfg.d_model, "requests": [list(r) for r in requests],
@@ -2771,6 +3028,7 @@ def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
           "moe_dropped_share": routing and routing["dropped_share"],
           "moe_first_layer_own_input_equal_route_share":
               routing and routing["first_layer_own_input_equal_route_share"],
+          "chunked_prefill_vs_recurrence": recurrence,
           "planned_sweep_launches": sweeps, "launches": by_path,
           "seconds": time.perf_counter() - t0})
     del params
@@ -2780,20 +3038,126 @@ def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
 
 
 def zoo_path(dev, workdir: Path) -> tuple:
-    """The seven architectures of ZOO, one after another, each freed before
-    the next. Returns ({path: launches}, whisper's table's sweep launches)."""
+    """The eight architectures of ZOO, one after another, each freed before
+    the next. Returns ({path: launches}, {planned table: its build's sweep
+    launches})."""
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "zoo_start", "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30})
     t0 = time.perf_counter()
-    by_path, sweeps = {}, 0
+    by_path, sweeps = {}, {}
     for arch, layers, requests in ZOO:
         paths, n = zoo_model(arch, layers, requests, dev, workdir)
         by_path.update(paths)
-        sweeps += n
+        if n:
+            sweeps[f"zoo {arch} table"] = n
     emit({"phase": "zoo_done", "seconds": time.perf_counter() - t0,
           "archs": [a for a, _, _ in ZOO]})
     return by_path, sweeps
+
+
+# The activation solvers: repro's planner shapes (tests/test_planners.py),
+# (batch, seq); offload at OFFLOAD_BUDGET · Q_min, remat at REMAT_BUDGET ·
+# Q_min, PIPELINE_STAGES stages; each must raise Infeasible at
+# INFEASIBLE_SHARE · Q_min.
+PLANNER_SHAPE = (16, 4096)
+REMAT_SHAPE = (4, 4096)
+OFFLOAD_BUDGET, REMAT_BUDGET, INFEASIBLE_SHARE = 2.0, 64.0, 0.5
+PIPELINE_STAGES = 8
+
+
+def d2d_copy(nbytes: int, reps: int = 5):
+    """The least host time of a copy of ``nbytes`` from card 0 to card 1 and
+    its synchronize, or None with one card."""
+    if torch.cuda.device_count() < 2:
+        return None
+    src = torch.empty(nbytes, dtype=torch.uint8, device="cuda:0")
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda:1")
+    best = math.inf
+    for _ in range(reps + 1):
+        torch.cuda.synchronize(0)
+        torch.cuda.synchronize(1)
+        t0 = time.perf_counter()
+        dst.copy_(src)
+        torch.cuda.synchronize(1)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+def planners_path() -> list:
+    """``plan_offload``, ``plan_remat`` (with ``segments_for_scan``) and
+    ``plan_pipeline`` for every registered architecture at full width on the
+    host (numpy DP through the façade, as ``repro`` solves them): each
+    plan's host seconds, segments or stages, overhead, recompute fraction
+    and balance; every plan within its budget, and offload and remat
+    ``Infeasible`` below Q_min. Prints ``h100_pipeline_model``'s constants
+    and, with more than one card visible, a measured card-to-card copy."""
+    from repro_torch.configs import ALL_ARCHS, get_config
+    from repro_torch.core import cost
+    from repro_torch.core.offload import min_activation_budget, plan_offload
+    from repro_torch.core.partition import Infeasible, within_budget
+    from repro_torch.core.pipeline import plan_pipeline
+    from repro_torch.core.remat_policy import plan_remat, segments_for_scan
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        return fn(), time.perf_counter() - t0
+
+    def infeasible(fn) -> bool:
+        try:
+            fn()
+        except Infeasible:
+            return True
+        return False
+
+    rows, bad = [], []
+    for arch in ALL_ARCHS:
+        cfg = get_config(arch)
+        b, s = PLANNER_SHAPE
+        qmn = min_activation_budget(cfg, b, s)
+        off, off_s = timed(lambda: plan_offload(cfg, b, s, OFFLOAD_BUDGET * qmn))
+        rb, rs = REMAT_SHAPE
+        rq = min_activation_budget(cfg, rb, rs)
+        rem, rem_s = timed(lambda: plan_remat(cfg, rb, rs, REMAT_BUDGET * rq))
+        pp, pp_s = timed(lambda: plan_pipeline(cfg, b, s, PIPELINE_STAGES))
+        n_seg, seg_len = segments_for_scan(cfg.n_layers, rem)
+        row = {"arch": arch,
+               "offload": {"host_s": off_s, "q_min_bytes": qmn, "segments": off.n_segments,
+                           "overhead_fraction": off.overhead_fraction,
+                           "within_budget": all(within_budget(x, OFFLOAD_BUDGET * qmn)
+                                                for x in off.segment_peak_bytes),
+                           "infeasible_below_q_min": infeasible(
+                               lambda: plan_offload(cfg, b, s, INFEASIBLE_SHARE * qmn))},
+               "remat": {"host_s": rem_s, "q_min_bytes": rq, "segments": rem.n_segments,
+                         "recompute_fraction": rem.recompute_fraction,
+                         "saved_bytes": rem.saved_bytes,
+                         "segments_for_scan": [n_seg, seg_len],
+                         "infeasible_below_q_min": infeasible(
+                             lambda: plan_remat(cfg, rb, rs, INFEASIBLE_SHARE * rq))},
+               "pipeline": {"host_s": pp_s, "stages": pp.n_stages, "balance": pp.balance,
+                            "bottleneck_s": pp.bottleneck_seconds,
+                            "max_stage_weight_bytes": max(pp.stage_weight_bytes)}}
+        rows.append(row)
+        if not (row["offload"]["within_budget"] and row["offload"]["infeasible_below_q_min"]
+                and row["remat"]["infeasible_below_q_min"] and n_seg * seg_len == cfg.n_layers
+                and pp.n_stages == len(pp.bounds) == PIPELINE_STAGES):
+            bad.append(arch)
+    pm = cost.h100_pipeline_model()
+    copy_64mb, copy_4kb = d2d_copy(64 << 20), d2d_copy(4096)
+    emit({"phase": "planners", "shape": list(PLANNER_SHAPE), "remat_shape": list(REMAT_SHAPE),
+          "budgets": {"offload": OFFLOAD_BUDGET, "remat": REMAT_BUDGET,
+                      "infeasible": INFEASIBLE_SHARE},
+          "archs": rows, "host_s": sum(r[k]["host_s"] for r in rows
+                                       for k in ("offload", "remat", "pipeline")),
+          "h100_pipeline_model": {"hop_init_s": pm.read.c0, "bytes_per_s": 1.0 / pm.read.c1,
+                                  "source": "NVLink 4 data sheet, one way; hop start-up "
+                                            "LAUNCH_S"},
+          "cards_visible": torch.cuda.device_count(),
+          "measured_d2d_copy_s": None if copy_64mb is None else
+              {"64MB": copy_64mb, "4KB": copy_4kb, "64MB_bytes_per_s": (64 << 20) / copy_64mb}})
+    if len(rows) != 10 or bad:
+        raise AssertionError(f"planner checks failed for {bad}")
+    return rows
 
 
 def main() -> int:
@@ -3141,9 +3505,12 @@ def main() -> int:
     del xparams
     torch.cuda.empty_cache()
 
-    # -- the model zoo: seven architectures served at full width ---------------
+    # -- the model zoo: eight architectures served at full width ---------------
     zoo_launches, zoo_sweeps = zoo_path(dev, ROOT / "build" / "zoo")
     launches_by_path.update(zoo_launches)
+
+    # -- the activation solvers over the ten architectures ---------------------
+    planners_path()
 
     # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and
@@ -3185,12 +3552,12 @@ def main() -> int:
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
         "launches": (launches["partition_sweep"] + plan_launches + calibration_launches
-                     + swarm["launches"] + dse_launches + zoo_sweeps),
+                     + swarm["launches"] + dse_launches + sum(zoo_sweeps.values())),
         "launches_by_path": {"headcount": launches["partition_sweep"],
                              "plan_table": plan_launches,
                              "calibration": calibration_launches,
                              "placement": swarm["launches"], "dse": dse_launches,
-                             "zoo whisper-large-v3 table": zoo_sweeps},
+                             **zoo_sweeps},
         "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],

@@ -1,11 +1,10 @@
 """Architecture configs of the port, one module per architecture.
 
-Only the architectures whose model family the port runs are registered:
-nine of ``repro.configs``' ten, the dense (qwen3-4b, tinyllama-1.1b,
-deepseek-coder-33b, qwen1.5-0.5b), moe (granite-moe-1b-a400m,
-phi3.5-moe-42b-a6.6b), vlm (llama-3.2-vision-11b), encdec
-(whisper-large-v3) and ssm (xlstm-1.3b) families. zamba2-7b, the hybrid
-family, follows with its slice (ROADMAP.md, queue 1, item 10).
+All ten of ``repro.configs``' architectures are registered: the dense
+(qwen3-4b, tinyllama-1.1b, deepseek-coder-33b, qwen1.5-0.5b), moe
+(granite-moe-1b-a400m, phi3.5-moe-42b-a6.6b), vlm (llama-3.2-vision-11b),
+encdec (whisper-large-v3), ssm (xlstm-1.3b) and hybrid (zamba2-7b)
+families.
 """
 
 from . import (
@@ -18,6 +17,7 @@ from . import (
     tinyllama_1_1b,
     whisper_large_v3,
     xlstm_1_3b,
+    zamba2_7b,
 )
 from .base import REGISTRY, ModelConfig, get_config
 
@@ -33,6 +33,7 @@ SMOKE_CONFIGS = {
     "phi3.5-moe-42b-a6.6b": phi3_5_moe.SMOKE,
     "llama-3.2-vision-11b": llama3_2_vision_11b.SMOKE,
     "whisper-large-v3": whisper_large_v3.SMOKE,
+    "zamba2-7b": zamba2_7b.SMOKE,
 }
 
 

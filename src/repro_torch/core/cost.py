@@ -5,7 +5,8 @@ The port's copy of the transfer/startup model of ``repro/core/cost.py``:
 cost ``E_s`` per burst. "Energy" is any additive scalar; the paper's
 instance is Joules on the FRAM/LPC54102 prototype, the H100's instance
 seconds (time-as-energy: volatile = HBM, NVM = pinned host memory over
-PCIe), priced with the H100's own constants below.
+PCIe; pipeline stages on H100 cards joined by NVLink), priced with the
+H100's own constants below.
 """
 
 from __future__ import annotations
@@ -28,7 +29,10 @@ __all__ = [
     "PCIE_BW",
     "DMA_INIT_S",
     "LAUNCH_S",
+    "NVLINK_BW",
+    "HOP_INIT_S",
     "h100_host_offload_model",
+    "h100_pipeline_model",
 ]
 
 
@@ -113,4 +117,28 @@ def h100_host_offload_model(
         read=LinearTransfer(c0=dma_init_s, c1=1.0 / pcie_bw),
         write=LinearTransfer(c0=dma_init_s, c1=1.0 / pcie_bw),
         name="h100-host-offload",
+    )
+
+
+# Pipeline stages, one H100 SXM card each, joined by NVLink 4: the
+# counterpart of repro/core/cost.py::tpu_pipeline_model, whose hops cross
+# ICI (one card has none). NVLINK_BW is NVIDIA's H100 SXM data sheet figure:
+# 900 GB/s of NVLink bandwidth per card in total, 450 GB/s each way; a hop
+# moves the boundary activation one way. HOP_INIT_S, a hop's start-up, is
+# LAUNCH_S above (one launch and its synchronize, measured on one card);
+# no card-to-card copy has been measured for it.
+NVLINK_BW = 450e9
+HOP_INIT_S = LAUNCH_S
+
+
+def h100_pipeline_model(nvlink_bw: float = NVLINK_BW,
+                        hop_init_s: float = HOP_INIT_S) -> CostModel:
+    """Pipeline-stage partitioning: a burst = a stage; crossing a boundary
+    sends the live set over NVLink to the next stage's card, charged once,
+    on the read side."""
+    return CostModel(
+        e_startup=0.0,
+        read=LinearTransfer(c0=hop_init_s, c1=1.0 / nvlink_bw),
+        write=LinearTransfer(c0=0.0, c1=0.0),
+        name="h100-pipeline",
     )

@@ -1,15 +1,15 @@
-"""Activation-offload pricing via Julienning: the pricing half of
-``repro/core/offload.py``.
+"""Activation-offload scheduling via Julienning (``repro/core/offload.py``).
 
 Volatile memory = HBM, NVM = pinned host memory over PCIe — the paper's
-memory hierarchy, one level up. An activation graph partitioned under the
-**memory cost model** (burst "energy" = activation working set in bytes,
-Q_max = the HBM activation budget) is *priced* here under the H100's PCIe
-time model (``c0 + bytes/bw``, the shape of the paper's FRAM model):
-:func:`price_offload_bounds` prices *given* segment bounds (e.g. the cut
-points stored in a :class:`repro_torch.core.plan_table.PlanTable`) without
-any DP solve, and :func:`min_activation_budget` is Q_min (§4.4) under the
-memory model. The solving half (``plan_offload``) is ROADMAP item 10.
+memory hierarchy, one level up. The activation graph is partitioned under
+the **memory cost model** (burst "energy" = activation working set in
+bytes, Q_max = the HBM activation budget), then the partition is *priced*
+under the H100's PCIe time model (``c0 + bytes/bw``, the shape of the
+paper's FRAM model). :func:`plan_offload` solves (the numpy DP through the
+façade, as ``repro`` does) then prices; :func:`price_offload_bounds` prices
+*given* segment bounds (e.g. the cut points stored in a
+:class:`repro_torch.core.plan_table.PlanTable`) without any DP solve, and
+:func:`min_activation_budget` is Q_min (§4.4) under the memory model.
 Budget feasibility uses the global tolerance of :mod:`.partition`.
 """
 
@@ -21,6 +21,7 @@ from typing import List, Sequence, Tuple
 from ..configs.base import ModelConfig
 from .burst import burst_detail
 from .cost import PEAK_FLOPS, h100_host_offload_model
+from .engine import PartitionSpec, default_engine
 from .graph import TaskGraph
 from .layer_profile import (
     LayerProfile,
@@ -30,7 +31,7 @@ from .layer_profile import (
 )
 from .partition import Infeasible, q_min, within_budget
 
-__all__ = ["OffloadPlan", "price_offload_bounds", "min_activation_budget"]
+__all__ = ["OffloadPlan", "plan_offload", "price_offload_bounds", "min_activation_budget"]
 
 
 @dataclasses.dataclass
@@ -110,3 +111,18 @@ def price_offload_bounds(
         pcie_seconds=pcie_s,
         compute_seconds=compute_s,
     )
+
+
+def plan_offload(cfg: ModelConfig, batch: int, seq: int,
+                 hbm_budget_bytes: float) -> OffloadPlan:
+    """The least-energy segmentation of ``cfg``'s activation graph at
+    (``batch``, ``seq``) whose every segment's working set fits
+    ``hbm_budget_bytes`` (the numpy DP), priced by
+    :func:`price_offload_bounds`. Raises ``Infeasible`` below Q_min."""
+    profiles, long_lived = profile_model(cfg, batch, seq)
+    mem_graph = build_activation_graph(profiles, long_lived, kind="memory")
+    part = default_engine().solve(PartitionSpec(
+        graph=mem_graph, cost=memory_cost_model(), q_max=hbm_budget_bytes,
+        backend="numpy",
+    )).partition()
+    return price_offload_bounds(cfg.name, profiles, mem_graph, part.bounds, hbm_budget_bytes)

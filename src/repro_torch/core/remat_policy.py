@@ -1,26 +1,34 @@
-"""Memory-bounded remat pricing via Julienning: the pricing half of
-``repro/core/remat_policy.py``.
+"""Memory-bounded remat segmentation via Julienning
+(``repro/core/remat_policy.py``).
 
 Same activation graph, third cost interpretation: crossing a segment
 boundary *saves* the boundary activation (HBM bytes) and the backward pass
 *recomputes* the segment interior (FLOPs, priced at the H100's bf16 peak).
-:func:`remat_from_bounds` prices *given* boundaries (e.g. the cut points
-stored in a plan table) with no DP solve. The solving half (``plan_remat``,
-``segments_for_scan``) is ROADMAP item 10. Budget feasibility uses the
+:func:`plan_remat` sweeps Q and keeps the feasible segmentation with the
+least recompute; :func:`remat_from_bounds` prices *given* boundaries (e.g.
+the cut points stored in a plan table) with no DP solve;
+:func:`segments_for_scan` turns a plan into the (n_segments, seg_len) of a
+uniform segmentation of a homogeneous stack. Budget feasibility uses the
 global solver tolerance of :mod:`.partition`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from ..configs.base import ModelConfig
 from .cost import PEAK_FLOPS
+from .engine import PartitionSpec, default_engine
 from .graph import TaskGraph
-from .layer_profile import LayerProfile, memory_cost_model
-from .partition import Infeasible, Partition, _partition_from_bounds, within_budget
+from .layer_profile import LayerProfile, build_activation_graph, memory_cost_model, profile_model
+from .partition import Infeasible, Partition, _partition_from_bounds, q_min, within_budget
 
-__all__ = ["RematPlan", "remat_from_bounds"]
+__all__ = ["RematPlan", "plan_remat", "remat_from_bounds", "segments_for_scan"]
+
+Q_POINTS = 24  # the per-segment bounds plan_remat sweeps
 
 
 @dataclasses.dataclass
@@ -99,3 +107,47 @@ def remat_from_bounds(
         recompute_seconds=rec_flops / PEAK_FLOPS,
         compute_seconds=compute,
     )
+
+
+def plan_remat(cfg: ModelConfig, batch: int, seq: int,
+               hbm_budget_bytes: float) -> RematPlan:
+    """The least recompute subject to (saved boundaries + the largest
+    segment's transient working set) ≤ ``hbm_budget_bytes``.
+
+    Saved boundaries occupy HBM until the backward pass, so the budget binds
+    their sum plus one segment's working set. The per-segment bound Q is
+    swept over ``Q_POINTS`` geometric points from Q_min to the budget, one
+    numpy solve over the grid; the first candidate with strictly less
+    recompute than those before it wins. Raises ``Infeasible`` when none
+    fits."""
+    profiles, long_lived = profile_model(cfg, batch, seq)
+    mem_graph = build_activation_graph(profiles, long_lived, kind="memory")
+    mem = memory_cost_model()
+    qmn = q_min(mem_graph, mem)
+    qs = tuple(np.geomspace(qmn, max(hbm_budget_bytes, qmn * 1.0001), Q_POINTS))
+    cands = default_engine().solve(PartitionSpec(
+        graph=mem_graph, cost=mem, q_grid=qs, backend="numpy")).partitions()
+    part: Optional[Partition] = None
+    best = None
+    for cand in cands:
+        if cand is None:
+            continue
+        saved, rec = _saved_and_recompute(profiles, mem_graph, cand)
+        if not within_budget(saved + cand.max_burst, hbm_budget_bytes):
+            continue
+        if best is None or rec < best:
+            best, part = rec, cand
+    if part is None:
+        raise Infeasible(
+            f"no remat segmentation fits {hbm_budget_bytes / 1e9:.2f} GB "
+            f"(transient Q_min alone is {qmn / 1e9:.2f} GB)")
+    return remat_from_bounds(cfg.name, profiles, mem_graph, part.bounds, hbm_budget_bytes)
+
+
+def segments_for_scan(n_layers: int, plan: RematPlan) -> Tuple[int, int]:
+    """(n_segments, seg_len) for a double-loop lowering: the divisor of
+    ``n_layers`` closest to the plan's segment count (the smaller on a tie)."""
+    want = max(plan.n_segments, 1)
+    best = min((s for s in range(1, n_layers + 1) if n_layers % s == 0),
+               key=lambda s: abs(s - want))
+    return best, n_layers // best

@@ -8,13 +8,18 @@ precomputed plan table.
          [--calibration ledger.json [--drift-tol 0.05]]]
         [--trace-out t.json] [--metrics-out m.json]
 
-The port of ``repro/launch/serve.py``, for the nine architectures the port
-registers: qwen3-4b, tinyllama-1.1b, deepseek-coder-33b and qwen1.5-0.5b
+The port of ``repro/launch/serve.py``, for all ten architectures of
+``repro``: qwen3-4b, tinyllama-1.1b, deepseek-coder-33b and qwen1.5-0.5b
 (dense, KV cache), granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b (moe),
 llama-3.2-vision-11b (vlm: a zero stand-in of 1601 vision tokens,
 cross-attention caches), whisper-large-v3 (encdec: a zero stand-in of 1500
-audio frames) and xlstm-1.3b (recurrent state; its prompt length must be a
-multiple of 128 or below 128). As in ``repro``, the CLI and :func:`serve`
+audio frames), xlstm-1.3b (ssm: recurrent state) and zamba2-7b (hybrid:
+Mamba2 states beside one KV cache per application of the shared attention
+block; a cache without tail blocks has ``"tail": None``, which the decode
+graph, the state packets and the NVMs carry as it is). The ssm and hybrid
+prompts must be at most 128 tokens or a multiple of 128, as ``repro``'s
+chunked prefills assert: :func:`serve` refuses other lengths before any
+work. As in ``repro``, the CLI and :func:`serve`
 default to the small config of the architecture (``--smoke`` is accepted
 and changes nothing); ``--full`` (``serve(smoke=False)``) runs it at its
 full width (qwen3-4b: 36 layers, d 2560, 4,411,417,600 parameters;
@@ -104,17 +109,34 @@ def _device_key(dev: torch.device) -> torch.device:
 
 
 def _leaves(tree):
+    """The leaves of a nested dict, in order; a None (a cache part the
+    config does not have) has none."""
     if isinstance(tree, Mapping):
         for v in tree.values():
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 
 def _map(fn, tree):
+    """``fn`` on every leaf of a nested dict; a None stays None."""
     if isinstance(tree, Mapping):
         return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+    return None if tree is None else fn(tree)
+
+
+PROMPT_CHUNK = 128  # the ssm and hybrid families' prefill chunk (repro's assert)
+
+
+def _check_prompt_len(cfg, prompt_len: int) -> None:
+    """Raises ValueError for a prompt the family's prefill cannot take:
+    the ssm (chunked mLSTM) and hybrid (chunked SSD) families take at most
+    ``PROMPT_CHUNK`` tokens or a multiple of it."""
+    if (cfg.family in ("ssm", "hybrid") and prompt_len > PROMPT_CHUNK
+            and prompt_len % PROMPT_CHUNK):
+        raise ValueError(f"{cfg.name}: a prompt of {prompt_len} tokens; the {cfg.family} "
+                         f"family's chunked prefill takes at most {PROMPT_CHUNK} tokens or "
+                         f"a multiple of {PROMPT_CHUNK}")
 
 
 class _Captured:
@@ -382,6 +404,7 @@ class PlannedExecutor:
         from ..core.runtime import BurstRuntime
         from .planner import request_cycles
 
+        _check_prompt_len(self.cfg, prompt_len)
         max_seq = prompt_len + gen
         if plan is None:
             plan = self.planner.plan_for(batch, max_seq, cycle_budget)
@@ -474,6 +497,7 @@ def serve(arch: str, batch: int, prompt_len: int, gen: int, *, smoke: bool = Tru
         )
     dev = _device_key(resolve_device(device))
     cfg = resolve_config(arch, smoke=smoke)
+    _check_prompt_len(cfg, prompt_len)
     max_seq = prompt_len + gen
     if params is None:
         params = api.init_params(cfg, seed, dev, max_seq=max_seq)
@@ -533,7 +557,8 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-4b",
                     help="one of: " + ", ".join(ALL_ARCHS))
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--prompt-len", type=int, default=32,
+                    help="xlstm-1.3b and zamba2-7b: at most 128 or a multiple of 128")
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--full", action="store_true",

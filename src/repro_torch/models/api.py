@@ -3,9 +3,9 @@ on ``cfg.family`` (``repro/models/api.py``), plus :func:`extra_inputs` (the
 modality stand-ins' shapes) and :func:`params_from_numpy`, which carries the
 reference's parameters across.
 
-Ported: the dense, moe and vlm families (``transformer``), encdec
-(``encdec``) and the ssm family, xLSTM (``recurrent``). The hybrid family
-(zamba2) raises, naming the ROADMAP item.
+Every family of ``repro`` is ported: dense, moe and vlm
+(``transformer``), encdec (``encdec``), and the ssm (xLSTM) and hybrid
+(Zamba2) families (``recurrent``).
 """
 
 from __future__ import annotations
@@ -29,12 +29,8 @@ def _module(cfg):
         return transformer
     if cfg.family == "encdec":
         return encdec
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         return recurrent
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            "the hybrid family (zamba2: models/ssm.py and the Zamba2 half of "
-            "models/recurrent.py) is not ported yet: ROADMAP.md queue 1, item 10")
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
@@ -47,6 +43,8 @@ def init_params(cfg, seed: int = 0, device="cuda", max_seq: int = 4096):
     module = _module(cfg)
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     with torch.no_grad():
+        if cfg.family == "hybrid":
+            return recurrent.init_zamba_lm(cfg, gen)
         if module is recurrent:
             return recurrent.init_xlstm_lm(cfg, gen)
         if module is encdec:
@@ -73,6 +71,12 @@ def _per_layer(stacked, i, t):
     return t(stacked[i])
 
 
+def _map_tree(tree, t):
+    if isinstance(tree, Mapping):
+        return {k: _map_tree(v, t) for k, v in tree.items()}
+    return t(tree)
+
+
 def params_from_numpy(cfg, tree: Mapping[str, Any], device="cuda"):
     """``repro``'s parameter tree (``init_params(cfg, key)[0]``) as nested
     dicts of numpy arrays → the port's model. Dense and moe: ``layers``
@@ -81,7 +85,9 @@ def params_from_numpy(cfg, tree: Mapping[str, Any], device="cuda"):
     ``groups.cross`` [n_groups, ...]. encdec: ``enc`` and ``dec`` stacked,
     ``enc_ln``, ``dec_ln``, ``pos_enc``, ``pos_dec``. xLSTM: ``groups.m``
     stacked [groups, blocks, ...], ``groups.s`` and ``groups.s_ln`` stacked
-    [groups, ...]."""
+    [groups, ...]. Zamba2: ``groups.mamba`` (``cell`` and ``ln``) stacked
+    [groups, attn_every, ...], ``tail`` [rem, ...] (absent without a tail),
+    ``shared`` (``shared.mlp`` in it) unstacked."""
     module = _module(cfg)
     dev = resolve_device(device)
 
@@ -89,6 +95,8 @@ def params_from_numpy(cfg, tree: Mapping[str, Any], device="cuda"):
         return torch.from_numpy(np.array(a, copy=True)).to(dev)
 
     with torch.no_grad():
+        if cfg.family == "hybrid":
+            return _zamba_from_numpy(cfg, tree, t)
         if module is recurrent:
             return _xlstm_from_numpy(cfg, tree, t)
         if module is encdec:
@@ -127,12 +135,27 @@ def _xlstm_from_numpy(cfg, tree, t):
     })
 
 
+def _zamba_from_numpy(cfg, tree, t):
+    n_groups, rem = recurrent.zamba_groups(cfg)
+    mamba = tree["groups"]["mamba"]
+    return recurrent.ZambaLM(cfg, {
+        "embed": t(tree["embed"]), "final_norm": t(tree["final_norm"]),
+        "head": t(tree["head"]),
+        "groups": ((_per_layer(_per_layer(mamba, g, lambda a: a), j, t)
+                    for j in range(cfg.attn_every)) for g in range(n_groups)),
+        "tail": (_per_layer(tree["tail"], j, t) for j in range(rem)),
+        "shared": _map_tree(tree["shared"], t),
+    })
+
+
 def prefill(cfg, params, batch: Dict[str, torch.Tensor], max_seq: int,
             kernels: Kernels = KERNELS):
     """batch {"tokens": [B, S]} (vlm: and "vision"; encdec: and "audio", of
     :func:`extra_inputs`' shapes) → (logits [B, 1, V], cache)."""
     module = _module(cfg)
     with torch.no_grad():
+        if cfg.family == "hybrid":
+            return recurrent.zamba_prefill(cfg, params, batch["tokens"], max_seq, kernels)
         if module is recurrent:
             return recurrent.xlstm_prefill(cfg, params, batch["tokens"], max_seq, kernels)
         if module is encdec:
@@ -149,6 +172,8 @@ def decode_step(cfg, params, cache, token, pos, kernels: Kernels = KERNELS):
     the step."""
     module = _module(cfg)
     with torch.no_grad():
+        if cfg.family == "hybrid":
+            return recurrent.zamba_decode_step(cfg, params, cache, token, pos, kernels)
         if module is recurrent:
             return recurrent.xlstm_decode_step(cfg, params, cache, token, pos, kernels)
         if module is encdec:
@@ -157,8 +182,11 @@ def decode_step(cfg, params, cache, token, pos, kernels: Kernels = KERNELS):
 
 
 def cache_shape(cfg, batch: int, max_seq: int):
-    """{leaf: (shape, dtype)} of the decode cache."""
+    """{leaf: (shape, dtype)} of the decode cache, nested as ``repro``
+    nests it (a hybrid config without a tail has ``"tail": None``)."""
     module = _module(cfg)
+    if cfg.family == "hybrid":
+        return recurrent.zamba_cache_shape(cfg, batch, max_seq)
     if module is recurrent:
         return recurrent.xlstm_cache_shape(cfg, batch, max_seq)
     if module is encdec:

@@ -7,7 +7,7 @@
   tables equal the reference's CSR oracle.
 * Every typed error, a NaN Q, the fields the port does not implement, and
   ``auto`` without a card.
-* ``profile_model`` / ``lower_config`` of the nine registered architectures,
+* ``profile_model`` / ``lower_config`` of the ten registered architectures,
   smoke and full width, equal the reference's, with the port's ``PEAK_FLOPS`` set to
   the reference's for the comparison only; no port default is a TPU figure.
 """
@@ -259,7 +259,7 @@ SHAPES = [(1, 128), (4, 512), (8, 2048)]
 
 
 ZOO = ("tinyllama-1.1b", "deepseek-coder-33b", "qwen1.5-0.5b", "granite-moe-1b-a400m",
-       "phi3.5-moe-42b-a6.6b", "llama-3.2-vision-11b", "whisper-large-v3")
+       "phi3.5-moe-42b-a6.6b", "llama-3.2-vision-11b", "whisper-large-v3", "zamba2-7b")
 
 
 def _configs():
@@ -289,13 +289,13 @@ def test_profiles_and_lowered_graphs_match(arch, size, cfg, ref_cfg, monkeypatch
 
 
 def test_lower_zoo_and_no_tpu_defaults():
-    """``lower_zoo`` lowers every registered architecture: the reference's
-    ten but zamba2-7b (the hybrid family's slice), each to as many tasks as
-    the reference lowers it to."""
+    """``lower_zoo`` lowers every registered architecture, the reference's
+    ten, each to as many tasks as the reference lowers it to."""
     zoo = lp.lower_zoo(1, 128)
     assert sorted(zoo) == sorted(("qwen3-4b", "xlstm-1.3b") + ZOO)
-    assert sorted(zoo) == sorted(set(ref_lp.lower_zoo(1, 128)) - {"zamba2-7b"})
+    assert sorted(zoo) == sorted(ref_lp.lower_zoo(1, 128))
     assert zoo["qwen3-4b"].n_tasks == 36 and zoo["xlstm-1.3b"].n_tasks == 48
+    assert zoo["zamba2-7b"].n_tasks == 81 + 13
     for arch in ZOO:
         assert zoo[arch].n_tasks == ref_lp.lower_config(ref_get_config(arch), 1, 128).n_tasks
     for name in ("PEAK_FLOPS", "HBM_BW", "PCIE_BW", "DMA_INIT_S", "LAUNCH_S"):

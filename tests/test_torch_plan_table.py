@@ -12,7 +12,8 @@ header, and ``repro.api.solve(backend="numpy")`` for every cell's plan.
   of the table assembled from ``repro``'s pieces;
 * every cell equals ``repro``'s numpy façade solve bit for bit, for
   qwen3-4b (time and memory) and xlstm-1.3b at the buckets ``chip_smoke.py``
-  builds on the card;
+  builds on the card, and zamba2-7b (time and memory; its shared block's
+  embedding packet is read by 13 tasks);
 * extension byte-identity and lineage, the probe's detection of an altered
   cell, the fingerprint cache, version and lookup errors.
 """
@@ -46,8 +47,10 @@ REF = load_ref_oracle()
 QWEN_BUCKETS = [(1, 128), (1, 512), (1, 1000), (1, 2048), (4, 512), (4, 1024),
                 (8, 512), (8, 2048)]
 XLSTM_BUCKETS = [(1, 128), (1, 512), (1, 1024), (4, 512), (4, 1024), (8, 2048)]
+ZAMBA_BUCKETS = [(1, 128), (1, 520), (4, 528), (1, 2056)]
 TABLES = [("qwen3-4b", "time", QWEN_BUCKETS), ("qwen3-4b", "memory", QWEN_BUCKETS),
-          ("xlstm-1.3b", "time", XLSTM_BUCKETS)]
+          ("xlstm-1.3b", "time", XLSTM_BUCKETS), ("zamba2-7b", "time", ZAMBA_BUCKETS),
+          ("zamba2-7b", "memory", ZAMBA_BUCKETS)]
 
 
 @pytest.fixture(autouse=True)

@@ -117,9 +117,9 @@ def test_resolve_config_errors_and_passthrough():
     cfg = SMOKE_CONFIGS[ARCH]
     assert resolve_config(cfg) is cfg
     with pytest.raises(KeyError, match="smoke"):
-        resolve_config("zamba2-7b", smoke=True)
+        resolve_config("no-such-arch", smoke=True)
     with pytest.raises(KeyError, match="unknown architecture"):
-        get_config("zamba2-7b")
+        get_config("no-such-arch")
     with pytest.raises(TypeError):
         resolve_config(3)
 
@@ -263,15 +263,19 @@ def test_serve_rejects_gen_zero():
 
 
 def test_unported_families_raise():
-    """The moe family builds since the model-zoo slice; hybrid (zamba2)
-    still raises, naming ROADMAP item 10."""
+    """Every family of ``repro`` builds: moe since the model-zoo slice,
+    hybrid (zamba2) since the hybrid slice; a family ``repro`` does not
+    have raises ValueError."""
     moe = dataclasses.replace(SMOKE_CONFIGS[ARCH], family="moe",
                               moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
-    hybrid = dataclasses.replace(SMOKE_CONFIGS[ARCH], family="hybrid")
     model = api.init_params(moe, device="cpu")
     assert model.layers[0].mlp.w1.shape == (4, moe.d_model, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 10"):
-        api.init_params(hybrid, device="cpu")
+    hybrid = SMOKE_CONFIGS["zamba2-7b"]
+    model = api.init_params(hybrid, device="cpu")
+    assert len(model.groups) == hybrid.n_layers // hybrid.attn_every
+    assert model.shared.attn.wq.shape == (2 * hybrid.d_model, hybrid.n_heads * hybrid.hd)
+    with pytest.raises(ValueError, match="unknown model family"):
+        api.init_params(dataclasses.replace(SMOKE_CONFIGS[ARCH], family="rnn"), device="cpu")
 
 
 def test_cuda_requests_without_a_card_raise():

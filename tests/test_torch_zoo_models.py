@@ -104,8 +104,12 @@ def test_config_equals_reference(arch, smoke):
 
 
 def test_zamba2_stays_unregistered():
+    """zamba2-7b is registered since the hybrid slice and equals
+    ``repro``'s; an architecture ``repro`` does not have raises KeyError."""
+    got, want = get_config("zamba2-7b"), ref_get_config("zamba2-7b")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
     with pytest.raises(KeyError):
-        get_config("zamba2-7b")
+        get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("arch", ZOO)
