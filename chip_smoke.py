@@ -106,7 +106,23 @@ version on the card, and drives the port's paths:
    rest, against one prefill: every layer's float32 state and the last
    logits within twice a rounding reference's reading, a wrong decay in
    one chunk beyond it);
-13. the activation solvers (``planners``): ``plan_offload`` at 2·Q_min,
+13. training (``train``), every earlier model freed first: the loss runs
+   the plain versions under autograd (no RMSNorm, flash or mLSTM kernel
+   launches, which the kernels line shows), so each of the ten smoke
+   configs takes one loss and gradient on the card, held leaf by leaf to
+   the same code on the CPU within the rounding-derived tolerance of
+   ``tests/test_torch_loss.py`` (labels shifted by one, the control, must
+   exceed it); so does tinyllama-1.1b at full width with 2 of its 22
+   layers (b2 × 128); xlstm-1.3b at full width takes 3 steps (b8 × 128);
+   the train CLI crashes after burst 1 and resumes (qwen1.5-0.5b smoke, 6
+   steps, deterministic algorithms), its losses equal to an uninterrupted
+   run's within 1e-6; then ``train(smoke=False)`` trains tinyllama-1.1b at
+   full width and depth with ``repro``'s CLI defaults (50 steps of b8 ×
+   128, a checkpoint committed every 20 steps under ``build/train``),
+   its loss must fall, a warm step is traced, and the checkpoint cadence
+   is planned with the measured step time and state bytes on the numpy
+   oracle and on the sweep kernel, with equal bursts;
+14. the activation solvers (``planners``): ``plan_offload`` at 2·Q_min,
    ``plan_remat`` at 64·Q_min and ``plan_pipeline`` with 8 stages for all
    ten architectures at full width (b16 × 4096; remat b4 × 4096), each
    within its budget, offload and remat ``Infeasible`` at Q_min / 2, with
@@ -127,10 +143,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import random
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -3056,6 +3074,429 @@ def zoo_path(dev, workdir: Path) -> tuple:
     return by_path, sweeps
 
 
+# -- training ---------------------------------------------------------------------
+#
+# The loss runs the plain versions (PLAIN) on the card as on the CPU: repro's
+# loss reaches no Pallas kernel, and the CUDA kernels have no backward. The
+# card's gradients are held to the CPU's within the tolerance of
+# tests/test_torch_loss.py, counted by grad_sites below (a copy of
+# tests/helpers_torch.py's count, which this script cannot import): a leaf
+# within n·U·max|CPU leaf|, n = 2·n_fwd + 1 + r; the CE within
+# 2·n_fwd·U·max|logits|. The control (labels shifted by one position) must
+# exceed the leaf tolerance somewhere.
+
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_RUN = (50, 8, 128, 20)          # repro's CLI defaults: steps, batch, seq, burst steps
+TRAIN_SMOKE_BATCH = (2, 16)
+TRAIN_WIDE = (2, 2, 128)              # layers of tinyllama at full width, batch, seq
+TRAIN_XLSTM = ("xlstm-1.3b", 3, 8, 128)
+TRAIN_MAX_LOSS_S = 60.0
+TRAIN_DISK_BYTES = 40e9               # two kept checkpoints and a temporary file
+TRAIN_RESUME = ["--arch", "qwen1.5-0.5b", "--steps", "6", "--batch", "2", "--seq", "16",
+                "--burst-steps", "2", "--device", "cuda"]
+U_SITE = 2.0 ** -9
+
+
+def forward_sites(cfg) -> int:
+    """bf16 rounding sites from the tokens to the logits (the serving
+    tests' counts; tests/helpers_torch.py)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        n_s = L // cfg.slstm_every
+        return 14 * (L - n_s) + 12 * n_s + 2
+    if cfg.family == "hybrid":
+        return 17 * L + 16 * (L // cfg.attn_every) + 2
+    if cfg.family == "encdec":
+        return 22 * cfg.n_encoder_layers + 36 * L + 4
+    if cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        return 21 * (L - n_cross) + 15 * n_cross + 4
+    return (24 if cfg.family == "moe" else 21) * L + 4
+
+
+def grad_sites(cfg, tokens) -> int:
+    """2·n_fwd + 1 + r: the backward mirrors each forward site, the leaf's
+    weight-gradient product rounds once, and r counts bf16 additions of a
+    weight's gradients past its first use (the tied head, a moe router's
+    second read for the load-balance loss, zamba2's shared block after its
+    first group, an embedding row per repeat of its token)."""
+    reuse = int(torch.bincount(tokens.reshape(-1).cpu()).max()) - 1
+    reuse += 1 if cfg.tie_embeddings or cfg.family == "moe" else 0
+    if cfg.family == "hybrid":
+        reuse += cfg.n_layers // cfg.attn_every - 1
+    return 2 * forward_sites(cfg) + 1 + reuse
+
+
+def train_batch(cfg, batch, seq, dev, index=0, seed=1):
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticData
+    from repro_torch.launch.train import batch_tensors
+
+    data = SyntheticData(SyntheticConfig(cfg.vocab, seq, batch, seed=seed))
+    return batch_tensors(cfg, data.batch(index), dev)
+
+
+@contextlib.contextmanager
+def logits_seen():
+    """A list that receives max |logits| of every cross-entropy the port's
+    losses take inside the block."""
+    from repro_torch.models import common, encdec, recurrent, transformer
+
+    seen = []
+
+    def recorded(logits, labels):
+        seen.append(float(logits.detach().abs().max()))
+        return common.softmax_cross_entropy(logits, labels)
+
+    mods = (encdec, recurrent, transformer)
+    for m in mods:
+        m.softmax_cross_entropy = recorded
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.softmax_cross_entropy = common.softmax_cross_entropy
+
+
+def loss_and_grads(cfg, model, batch) -> dict:
+    """One loss and backward of the plain path: {"loss", "ce", "logits_max",
+    "grads": {name: float32 on the CPU}}."""
+    from repro_torch.models import api
+    from repro_torch.models.common import PLAIN
+
+    model.zero_grad(set_to_none=True)
+    with logits_seen() as seen:
+        loss, ce = api.loss(cfg, model, batch, remat=True, kernels=PLAIN)
+    loss.backward()
+    grads = {n: p.grad.detach().to("cpu", torch.float32) for n, p in model.named_parameters()}
+    return {"loss": float(loss.detach()), "ce": float(ce.detach()), "logits_max": seen[0],
+            "grads": grads}
+
+
+def grad_shares(got, want, sites) -> dict:
+    """{name: max |Δ| / (sites·U·max|want|)} per leaf (0 where both are 0)."""
+    out = {}
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        tol = sites * U_SITE * float(w.abs().max())
+        out[name] = err / tol if tol > 0 else (0.0 if err == 0 else math.inf)
+    return out
+
+
+def card_vs_cpu(cfg, model, batch, dev) -> dict:
+    """``model`` and ``batch`` on the CPU: their loss and gradients there,
+    then on a copy on the card, within the tolerance; the control (labels
+    shifted by one, on the card) must exceed it. Returns the readings."""
+    want = loss_and_grads(cfg, model, batch)
+    model.zero_grad(set_to_none=True)
+    on_card = copy.deepcopy(model).to(dev)
+    batch_d = {k: v.to(dev) for k, v in batch.items()}
+    got = loss_and_grads(cfg, on_card, batch_d)
+    sites = grad_sites(cfg, batch["tokens"])
+    shares = grad_shares(got["grads"], want["grads"], sites)
+    ctl = loss_and_grads(cfg, on_card, dict(batch_d, labels=torch.roll(batch_d["labels"], 1, 1)))
+    control = grad_shares(ctl["grads"], want["grads"], sites)
+    ce_tol = 2 * forward_sites(cfg) * U_SITE * want["logits_max"]
+    aux_tol = forward_sites(cfg) * U_SITE * abs(want["loss"] - want["ce"]) + ce_tol
+    row = {"sites": sites, "leaves": len(shares), "largest_share": max(shares.values()),
+           "worst_leaf": max(shares, key=shares.get),
+           "control_largest_share": max(control.values()),
+           "ce_card": got["ce"], "ce_cpu": want["ce"],
+           "ce_share": abs(got["ce"] - want["ce"]) / ce_tol,
+           "loss_card": got["loss"], "loss_cpu": want["loss"]}
+    ok = (row["largest_share"] <= 1.0 and row["control_largest_share"] > 1.0
+          and row["ce_share"] <= 1.0
+          and abs((got["loss"] - got["ce"]) - (want["loss"] - want["ce"])) <= aux_tol
+          and all(bool(torch.isfinite(g).all()) for g in got["grads"].values()))
+    del on_card
+    if not ok:
+        raise AssertionError(f"{cfg.name}: card gradients off the CPU's: {row}")
+    return row
+
+
+def step_breakdown(cfg, dev, batch, seq) -> dict:
+    """A warm training step of ``cfg`` at full width from a fresh model:
+    host time, the card's busy share and its largest kernels (traced), the
+    GEMMs' share of the busy time, and the loss-and-backward and the AdamW
+    update (with the cast into the module) timed apart."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import api
+    from repro_torch.models.common import PLAIN
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+    model, masters = api.init_trainable(cfg, 0, dev, max_seq=seq)
+    state = {"params": masters, "opt_state": adamw_init(masters)}
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=20)
+    b = train_batch(cfg, batch, seq, dev)
+    row = one_call(lambda: train_step(cfg, model, state, adamw, b))
+    rows = profile_device(lambda: train_step(cfg, model, state, adamw, b))
+    gemm = sum(t for k, (t, _) in rows.items()
+               if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")))
+    busy = sum(t for t, _ in rows.values())
+
+    def fwd_bwd():
+        model.zero_grad(set_to_none=True)
+        api.loss(cfg, model, b, remat=True, kernels=PLAIN)[0].backward()
+
+    fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+
+    def update():
+        adamw_update(adamw, state["params"], grads, state["opt_state"])
+        api.load_masters(model, state["params"])
+
+    row.update(gemm_share_of_busy=gemm / busy if busy else None, fwd_bwd_ms=fwd_bwd_ms,
+               adamw_and_cast_ms=cuda_ms(update, 3),
+               parameters=sum(p.numel() for p in model.parameters()))
+    del model, masters, state, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def backward_candidates(dev) -> dict:
+    """Forward and backward of the plain RMSNorm and attention that the
+    training path runs, at tinyllama-1.1b's b8 × 128 shapes, beside the
+    library calls a backward kernel would be held against (timed here only),
+    and of the plain mLSTM cell at xlstm-1.3b's: what backward kernels
+    could save, per call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_plain
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+    from repro_torch.models.common import PLAIN
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def leaf(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype).requires_grad_(True)
+
+    x, w = leaf(1024, 2048), leaf(2048, dtype=torch.float32)
+    q, k, v = leaf(8, 128, 32, 64), leaf(8, 128, 4, 64), leaf(8, 128, 4, 64)
+    ql, kl, vl = (t.detach().transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v))
+    w_lib = w.detach().to(torch.bfloat16).requires_grad_(True)
+
+    def run(f, *inputs):
+        return cuda_ms(lambda: f(*inputs).float().square().sum().backward(), 10)
+
+    # the mLSTM cell of xlstm-1.3b's blocks at b8 × 128: B·H 32, hd 1024, one chunk
+    mq, mk, mv = (leaf(32, 128, 1024) for _ in range(3))
+    mi, mf = leaf(32, 128, dtype=torch.float32), leaf(32, 128, dtype=torch.float32)
+    mlstm_ms = cuda_ms(lambda: mlstm_chunk_plain(mq, mk, mv, mi, mf)[0].float().square()
+                       .sum().backward(), 3)
+    return {
+        "mlstm_plain_fwd_bwd_ms": mlstm_ms,
+        "rmsnorm_plain_fwd_bwd_ms": run(lambda a, b: rmsnorm_plain(a, b, 1e-5), x, w),
+        "rmsnorm_library_fwd_bwd_ms": run(lambda a, b: F.rms_norm(a, (2048,), b, 1e-5),
+                                          x, w_lib),
+        "attention_plain_fwd_bwd_ms": run(lambda a, b, c: PLAIN.attention(a, b, c, True),
+                                          q, k, v),
+        "attention_library_fwd_bwd_ms": run(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), ql, kl, vl),
+        "shapes": "rmsnorm [1024, 2048] bf16; attention b8 x 128, H 32, KV 4, hd 64, causal; "
+                  "mLSTM B·H 32 x 128, hd 1024, bf16 (no library call)",
+    }
+
+
+def resume_via_cli(workdir: Path) -> dict:
+    """The train CLI on the card in two processes, each with
+    ``torch.use_deterministic_algorithms(True)`` and
+    ``CUBLAS_WORKSPACE_CONFIG`` set before CUDA starts (the embedding's
+    backward accumulates with atomics otherwise): the first runs with
+    ``--crash-after-burst 1`` and must exit 1 right after burst 1 commits;
+    the second runs the same 6 steps uninterrupted in another directory,
+    then the first command again, which resumes from burst 1. Its 4 losses
+    must equal the uninterrupted run's last 4 within repro's rtol 1e-6."""
+    code = ("import json, sys, torch\n"
+            "torch.use_deterministic_algorithms(True)\n"
+            "from repro_torch.launch import train as T\n"
+            "run = T.train\n"
+            "T.train = lambda *a, **k: print('LOSSES', json.dumps(run(*a, **k)), flush=True)\n"
+            "argv = sys.argv[1:]\n"
+            "if '--whole' in argv:\n"
+            "    argv.remove('--whole')\n"
+            "    rc = T.main(argv[:-1] + [argv[-1] + '_whole'])\n"
+            "    sys.exit(rc or T.main(argv))\n"
+            "sys.exit(T.main(argv))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    ckpt = ["--ckpt-dir", str(workdir / "resume")]
+
+    def cli(*extra):
+        out = subprocess.run([sys.executable, "-c", code, *TRAIN_RESUME, *extra, *ckpt],
+                             env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        losses = [json.loads(line.split(" ", 1)[1]) for line in out.stdout.splitlines()
+                  if line.startswith("LOSSES ")]
+        return out, losses
+
+    t0 = time.perf_counter()
+    crashed, none = cli("--crash-after-burst", "1")
+    resumed, runs = cli("--whole")
+    want, got = (runs + [None, None])[:2]
+    diff = (max(abs(a - b) / abs(b) for a, b in zip(got, want[2:]))
+            if got and want and len(got) == 4 and len(want) == 6 else None)
+    row = {"uninterrupted": want, "resumed": got, "largest_relative_difference": diff,
+           "crash_exit_code": crashed.returncode, "seconds": time.perf_counter() - t0,
+           "deterministic_algorithms": True}
+    ok = (crashed.returncode == 1 and not none and resumed.returncode == 0
+          and "[train] burst 1/3 committed" in crashed.stdout
+          and "[train] injected crash!" in crashed.stdout
+          and "[train] resumed from burst 1 (step 2)" in resumed.stdout
+          and diff is not None and diff <= 1e-6)
+    if not ok:
+        raise AssertionError(f"train CLI resume: {row}\n{crashed.stderr[-2000:]}\n"
+                             f"{resumed.stderr[-2000:]}")
+    return row
+
+
+def in_background(fn):
+    """Start ``fn()`` on a thread; returns a function that waits for it and
+    gives its result or raises its exception."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # re-raised by the caller on join
+            out["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def join():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out["value"]
+    return join
+
+
+def train_path(dev, workdir: Path) -> tuple:
+    """The training path on the card (module docstring, phase 13). The CLI's
+    crash and resume run in their own processes beside the checks that time
+    nothing (every family's gradients, full width at 2 layers, xlstm-1.3b's
+    steps); the timed tinyllama-1.1b run starts after they end. Returns
+    ({"train": the model kernels' launches}, the burst-schedule solves'
+    sweep launches)."""
+    from repro_torch.checkpoint.burst_ckpt import plan_burst_schedule
+    from repro_torch.configs import SMOKE_CONFIGS, get_config
+    from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
+    from repro_torch.launch import train as T
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_start", "allocated_gib": torch.cuda.memory_allocated() / 2 ** 30})
+    counters = serving_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    resumed = in_background(lambda: resume_via_cli(workdir))
+
+    # every family at smoke size: the card's gradients against the CPU's
+    t0 = time.perf_counter()
+    smoke = {}
+    for arch, cfg in SMOKE_CONFIGS.items():
+        model, _ = api.init_trainable(cfg, 0, cpu, max_seq=TRAIN_SMOKE_BATCH[1])
+        smoke[arch] = card_vs_cpu(cfg, model, train_batch(cfg, *TRAIN_SMOKE_BATCH, cpu), dev)
+    emit({"phase": "train_smoke_grads", "seconds": time.perf_counter() - t0,
+          "batch": list(TRAIN_SMOKE_BATCH), "archs": smoke})
+
+    # tinyllama at full width, 2 of its 22 layers: the gradient against the CPU
+    t0 = time.perf_counter()
+    layers, b, seq = TRAIN_WIDE
+    wide_cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    model, _ = api.init_trainable(wide_cfg, 0, cpu, max_seq=seq)
+    wide = card_vs_cpu(wide_cfg, model, train_batch(wide_cfg, b, seq, cpu), dev)
+    wide["parameters"] = sum(p.numel() for p in model.parameters())
+    del model
+    emit({"phase": "train_full_width_grads", "arch": TRAIN_ARCH,
+          "reduced": f"n_layers 22→{layers}", "batch": [b, seq],
+          "seconds": time.perf_counter() - t0, **wide})
+
+    # xlstm-1.3b at full width: 3 steps through train_step, no commit
+    arch, n, b, seq = TRAIN_XLSTM
+    xcfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    model, masters = api.init_trainable(xcfg, 0, dev, max_seq=seq)
+    state = {"params": masters, "opt_state": adamw_init(masters)}
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=20)
+    xl, xs = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        xl.append(float(T.train_step(xcfg, model, state, adamw,
+                                     train_batch(xcfg, b, seq, dev, index=i, seed=0))))
+        xs.append(time.perf_counter() - t0)
+    row = {"phase": "train_xlstm", "arch": arch, "steps": n, "batch": [b, seq], "losses": xl,
+           "step_seconds": xs, "parameters": sum(p.numel() for p in model.parameters()),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    del model, masters, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(row)
+    if not all(math.isfinite(x) for x in xl):
+        raise AssertionError(f"train: xlstm losses {xl}")
+
+    # crash and resume through the CLI (run beside the checks above)
+    emit({"phase": "train_resume_cli", **resumed()})
+
+    # tinyllama at full width and depth through train(), repro's defaults
+    steps, b, seq, burst = TRAIN_RUN
+    free = shutil.disk_usage(workdir).free
+    if free < TRAIN_DISK_BYTES:
+        raise AssertionError(f"train: {free / 1e9:.1f} GB free under {workdir}, "
+                             f"{TRAIN_DISK_BYTES / 1e9:.0f} GB needed")
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    t0 = time.perf_counter()
+    losses = T.train(TRAIN_ARCH, steps, b, seq, burst, str(workdir / "tinyllama"),
+                     smoke=False, device=dev, report=report)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    warm = sorted(report["step_seconds"][3:])
+    step_s = warm[len(warm) // 2]
+    state_bytes = report["commits"][0]["bytes"]
+    shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "train_full", "arch": TRAIN_ARCH, "steps": steps, "batch": [b, seq],
+           "burst_steps": burst, "seconds": run_s, "first_loss": losses[0],
+           "last_loss": losses[-1], "losses": losses,
+           "first_step_s": report["step_seconds"][0], "warm_step_ms_median": step_s * 1e3,
+           "max_memory_allocated_gib": peak / 2 ** 30, "commits": report["commits"],
+           "disk_free_gb_before": free / 1e9}
+    emit(row)
+    if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0] and len(report["commits"]) == 3):
+        raise AssertionError(f"train: {row}")
+
+    # where a warm step's time goes; what backward kernels could save
+    emit({"phase": "train_step_trace", "arch": TRAIN_ARCH, "batch": [b, seq],
+          **step_breakdown(get_config(TRAIN_ARCH), dev, b, seq),
+          "backward_candidates": backward_candidates(dev)})
+
+    # the checkpoint cadence priced with this run's step time and state bytes
+    sweep_columns_cuda.launches = 0
+    plans = {be: plan_burst_schedule(steps, step_s, state_bytes, TRAIN_MAX_LOSS_S, backend=be)
+             for be in ("numpy", "cuda")}
+    sweep_launches = sweep_columns_cuda.launches
+    emit({"phase": "train_burst_schedule", "step_seconds": step_s, "state_bytes": state_bytes,
+          "max_loss_seconds": TRAIN_MAX_LOSS_S, "sweep_launches": sweep_launches,
+          **{f"{be}_summary": p.summary() for be, p in plans.items()},
+          "bounds": plans["numpy"].bounds})
+    if plans["numpy"].bounds != plans["cuda"].bounds or sweep_launches < 1:
+        raise AssertionError("train: the burst schedule differs between numpy and cuda")
+
+    launches = {k: fn.launches for k, fn in counters.items()}
+    emit({"phase": "train_done", "seconds": time.perf_counter() - t_phase,
+          "model_kernel_launches": launches})
+    if any(launches.values()):
+        raise AssertionError(f"train: the training path launched model kernels: {launches}")
+    return {"train": launches}, sweep_launches
+
+
 # The activation solvers: repro's planner shapes (tests/test_planners.py),
 # (batch, seq); offload at OFFLOAD_BUDGET · Q_min, remat at REMAT_BUDGET ·
 # Q_min, PIPELINE_STAGES stages; each must raise Infeasible at
@@ -3509,6 +3950,10 @@ def main() -> int:
     zoo_launches, zoo_sweeps = zoo_path(dev, ROOT / "build" / "zoo")
     launches_by_path.update(zoo_launches)
 
+    # -- training: every family on the card, tinyllama-1.1b at full width -----
+    train_launches, train_sweeps = train_path(dev, ROOT / "build" / "train")
+    launches_by_path.update(train_launches)
+
     # -- the activation solvers over the ten architectures ---------------------
     planners_path()
 
@@ -3552,12 +3997,13 @@ def main() -> int:
         "source": "src/repro_torch/kernels/partition_sweep/csrc/partition_sweep.cu",
         "replaces": "src/repro/kernels/partition_sweep/kernel.py:78",
         "launches": (launches["partition_sweep"] + plan_launches + calibration_launches
-                     + swarm["launches"] + dse_launches + sum(zoo_sweeps.values())),
+                     + swarm["launches"] + dse_launches + sum(zoo_sweeps.values())
+                     + train_sweeps),
         "launches_by_path": {"headcount": launches["partition_sweep"],
                              "plan_table": plan_launches,
                              "calibration": calibration_launches,
                              "placement": swarm["launches"], "dse": dse_launches,
-                             **zoo_sweeps},
+                             **zoo_sweeps, "train": train_sweeps},
         "max_abs_err": sweep_err["max_abs_err"],
         "bests_mismatches": sweep_err["bests_mismatches"],
         "compared_tables": sweep_err["comparisons"],

@@ -85,6 +85,10 @@ class Partition:
     def max_burst(self) -> float:
         return max((b.total for b in self.bursts), default=0.0)
 
+    @property
+    def transfer_bytes(self) -> int:
+        return sum(b.read_bytes + b.write_bytes for b in self.bursts)
+
     def validate(self, graph: TaskGraph) -> None:
         """Structural sanity: contiguous cover of 1..n, budget respected."""
         expect = 1
@@ -100,6 +104,15 @@ class Partition:
                     raise AssertionError(
                         f"burst ⟨{b.i},{b.j}⟩ cost {b.total} exceeds Q_max {self.q_max}"
                     )
+
+    def summary(self) -> str:
+        """One line, ``repro``'s ``Partition.summary`` byte for byte."""
+        return (
+            f"bursts={self.n_bursts}  E_total={self.e_total:.6g}  "
+            f"E_app={self.e_app:.6g}  overhead={self.e_overhead:.6g} "
+            f"({100 * self.e_overhead / max(self.e_total, 1e-300):.3f}%)  "
+            f"max_burst={self.max_burst:.6g}  bytes={self.transfer_bytes}"
+        )
 
 
 def _partition_from_bounds(

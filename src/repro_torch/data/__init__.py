@@ -1,1 +1,2 @@
-"""Input formats the port reads (NS Optimizer profiles)."""
+"""Input formats the port reads (NS Optimizer profiles) and the synthetic
+token stream training reads (``synthetic``)."""

@@ -5,7 +5,9 @@ it regroups the model's ``[B, S, H, hd]`` / ``[B, S, KV, hd]`` layout into
 the kernel's ``[B·KV, S, G, hd]`` / ``[B·KV, S, hd]`` and back, with
 positions counted from 0 (what prefill uses). Dispatch is on q's device
 alone: on a card the kernel runs (or the call raises); on the CPU the plain
-version runs.
+version runs. The kernel has no backward: on a card, with grad mode on, a
+tensor that requires grad makes the call raise (its output would carry no
+gradient); the loss runs the plain version instead.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     if q.shape[2] % k.shape[2]:
         raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
                          f"{k.shape[2]} KV heads")
+    if q.is_cuda and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the CUDA kernel has no backward; a tensor "
+                           "requires grad (run the plain version, models.common.PLAIN)")
     qg, kg, vg = to_bkv(q, k, v)
     run = flash_attention_bkv_cuda if q.is_cuda else attention_plain
     return from_bkv(run(qg, kg, vg, causal=causal), q.shape[0])

@@ -4,7 +4,10 @@ The counterpart of ``repro/kernels/mlstm_chunk/ops.py::mlstm_cell``: it folds
 the model's ``[B, S, H, hd]`` layout into the kernel's ``[B·H, S, hd]`` and
 back, and also returns the final state, which decode continues from.
 Dispatch is on q's device alone: on a card the kernel runs (or the call
-raises); on the CPU the plain version runs.
+raises); on the CPU the plain version runs. The kernel has no backward: on a
+card, with grad mode on, a tensor that requires grad makes the call raise
+(its outputs would carry no gradient); the loss runs the plain version
+instead.
 """
 
 from __future__ import annotations
@@ -44,5 +47,9 @@ def mlstm_cell(q, k, v, i_pre, f_pre, *, chunk: int = 128):
     q, k, v = (torch.as_tensor(t) for t in (q, k, v))
     i_pre, f_pre = (torch.as_tensor(t, dtype=torch.float32, device=q.device)
                     for t in (i_pre, f_pre))
+    if q.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v, i_pre, f_pre)):
+        raise RuntimeError("mlstm_cell: the CUDA kernel has no backward; a tensor requires "
+                           "grad (run the plain version, models.common.PLAIN)")
     run = mlstm_chunk_bh_cuda if q.is_cuda else mlstm_chunk_plain
     return in_model_layout(run, q, k, v, i_pre, f_pre, chunk=chunk)

@@ -1,0 +1,184 @@
+"""End-to-end burst-checkpointed training driver (``repro/launch/train.py``).
+
+Fault tolerance is the paper's Algorithm 1: train in bursts of k steps,
+checkpoint and atomically commit the burst index after each burst, resume
+from the committed index after any crash (the deterministic data pipeline
+regenerates the exact batches). ``--crash-after-burst N`` ends the process
+(exit code 1) right after burst N commits; rerunning the same command
+resumes and continues the same trajectory.
+
+The smoke config is the default, as in ``repro``; ``--full`` trains the
+architecture at full width with random weights from seed 0. Every
+family trains: the loss is ``api.loss`` on the plain tensor code under
+autograd (``repro``'s loss reaches no Pallas kernel; the port's CUDA kernels
+have no backward and their wrappers refuse tensors that need one), remat as
+in ``repro``, and AdamW on the float32 masters, which are cast back into the
+module's bfloat16 and float32 weights after each update
+(``models/api.py``). vlm and encdec take ``repro``'s zero stand-ins for the
+vision tokens and audio frames.
+
+``repro``'s ``--production-mesh`` and its ``steps.make_constrain`` lay the
+arrays out over a TPU pod's ("pod", "data", "model") mesh; on one card
+those sharding constraints are the identity, so neither is ported (the
+port's ``launch/mesh.py`` says the same of the mesh layouts).
+
+Usage:
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50 --device cpu
+    python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50 --device cpu \\
+        --crash-after-burst 2   # then rerun without the flag to resume
+    python -m repro_torch.launch.train --plan-bursts
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import tempfile
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint.burst_ckpt import BurstCheckpointer, plan_burst_schedule
+from ..configs import SMOKE_CONFIGS, get_config
+from ..data.synthetic import SyntheticConfig, SyntheticData
+from ..device import resolve_device
+from ..models import api
+from ..models.common import PLAIN
+from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+
+__all__ = ["train", "train_step", "batch_tensors", "stand_ins", "main"]
+
+
+def stand_ins(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
+    """The family's zero stand-ins, as ``repro``'s train step makes them:
+    vlm's vision tokens, encdec's audio frames (none for the others)."""
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in api.extra_inputs(cfg, batch).items()}
+
+
+def batch_tensors(cfg, batch: Dict[str, np.ndarray], device,
+                  extra: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """A synthetic batch on ``device``: int64 tokens and labels, and
+    ``extra`` (the family's zero stand-ins when None)."""
+    out = {k: torch.from_numpy(batch[k]).to(device=device, dtype=torch.int64)
+           for k in ("tokens", "labels")}
+    if extra is None:
+        extra = stand_ins(cfg, out["tokens"].shape[0], device)
+    return {**out, **extra}
+
+
+def train_step(cfg, model, state, adamw: AdamWConfig,
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One step: the loss and its gradients through autograd (the plain
+    versions, with remat), AdamW on the float32 masters ``state["params"]``
+    and the moments of ``state["opt_state"]`` in place, then the masters
+    cast into the module. Returns the loss before the update, a 0-d
+    float32 tensor."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = api.loss(cfg, model, batch, remat=True, kernels=PLAIN)
+    loss.backward()
+    grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+             for n, p in model.named_parameters()}
+    adamw_update(adamw, state["params"], grads, state["opt_state"])
+    api.load_masters(model, state["params"])
+    return loss.detach()
+
+
+def _on_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _on_device(v, dev) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True)).to(dev)
+
+
+def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_dir: str,
+          smoke: bool = True, crash_after_burst: int = -1, seed: int = 0,
+          log_every: int = 10, lr: float = 1e-3, device="cuda",
+          report: Optional[dict] = None):
+    """Train ``arch`` for ``steps`` steps of ``batch`` × ``seq`` tokens in
+    bursts of ``burst_steps``, committing a checkpoint under ``ckpt_dir``
+    after each; resumes from the last committed burst there. Returns the
+    losses of the steps this call ran. ``report``, if given, receives
+    "step_seconds" (each step's host time to its loss, which waits for the
+    card) and "commits" ({"burst", "seconds", "bytes"} each)."""
+    dev = resolve_device(device)
+    cfg = SMOKE_CONFIGS[arch] if smoke else get_config(arch)
+    adamw = AdamWConfig(lr=lr, warmup_steps=20)
+    data = SyntheticData(SyntheticConfig(cfg.vocab, seq, batch, seed=seed))
+    ck = BurstCheckpointer(ckpt_dir)
+    report = {} if report is None else report
+    report.update(step_seconds=[], commits=[])
+
+    restored = ck.restore()
+    model, masters = api.init_trainable(cfg, seed, dev, max_seq=seq)
+    if restored is None:
+        state = {"params": masters, "opt_state": adamw_init(masters)}
+        start_burst = 0
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"[train] fresh start: {arch} ({cfg.name}), {n_params / 1e6:.1f}M params")
+    else:
+        del masters
+        start_burst, host = restored
+        state = _on_device(host, dev)
+        api.load_masters(model, state["params"])
+        print(f"[train] resumed from burst {start_burst} (step {start_burst * burst_steps})")
+
+    extra = stand_ins(cfg, batch, dev)
+    n_bursts = (steps + burst_steps - 1) // burst_steps
+    losses = []
+    for burst in range(start_burst, n_bursts):
+        t0 = time.time()
+        for s in range(burst * burst_steps, min((burst + 1) * burst_steps, steps)):
+            ts = time.perf_counter()
+            b = batch_tensors(cfg, data.batch(s), dev, extra)
+            loss = float(train_step(cfg, model, state, adamw, b))
+            report["step_seconds"].append(time.perf_counter() - ts)
+            losses.append(loss)
+            if s % log_every == 0:
+                print(f"[train] step {s:5d}  loss {loss:.4f}  "
+                      f"({time.time() - t0:.1f}s into burst {burst})")
+        tc = time.perf_counter()
+        nbytes = ck.save(burst + 1, state)
+        report["commits"].append({"burst": burst + 1, "seconds": time.perf_counter() - tc,
+                                  "bytes": nbytes})
+        print(f"[train] burst {burst + 1}/{n_bursts} committed ({time.time() - t0:.1f}s)")
+        if crash_after_burst == burst + 1:
+            print("[train] injected crash! rerun to resume.", flush=True)
+            sys.stderr.flush()
+            os._exit(1)
+    if losses:
+        print(f"[train] done: first loss {losses[0]:.4f} → last {losses[-1]:.4f}")
+    return losses
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--burst-steps", type=int, default=20)
+    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_ckpt"))
+    ap.add_argument("--full", action="store_true", help="full (non-smoke) config")
+    ap.add_argument("--crash-after-burst", type=int, default=-1)
+    ap.add_argument("--plan-bursts", action="store_true",
+                    help="print the julienne checkpoint-cadence plan and exit")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.plan_bursts:
+        part = plan_burst_schedule(args.steps, step_seconds=1.0,
+                                   state_bytes=10**9, max_loss_seconds=60.0)
+        print(part.summary())
+        print("burst bounds:", part.bounds)
+        return 0
+    train(args.arch, args.steps, args.batch, args.seq, args.burst_steps, args.ckpt_dir,
+          smoke=not args.full, crash_after_burst=args.crash_after_burst, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,7 +1,18 @@
-"""Model API: one entry point each for init / prefill / decode, dispatched
-on ``cfg.family`` (``repro/models/api.py``), plus :func:`extra_inputs` (the
-modality stand-ins' shapes) and :func:`params_from_numpy`, which carries the
-reference's parameters across.
+"""Model API: one entry point each for init / loss / prefill / decode,
+dispatched on ``cfg.family`` (``repro/models/api.py``), plus
+:func:`extra_inputs` (the modality stand-ins' shapes) and
+:func:`params_from_numpy`, which carries the reference's parameters across.
+
+Training holds the float32 masters beside the serving module, which keeps
+its weights' types (bfloat16 matmul weights, float32 norms):
+:func:`init_trainable` and :func:`trainable_from_numpy` return the module,
+its parameters now requiring grad, and {name: the unrounded float32 value}
+of each; :func:`load_masters` casts the masters into the module after each
+update, so the forward sees the bfloat16 values ``repro``'s cast at each
+use gives, and each bfloat16 ``.grad`` in float32 is ``repro``'s cotangent
+through that cast. :func:`loss` runs :data:`~.common.PLAIN` unless told
+otherwise: ``repro``'s loss reaches no Pallas kernel, and the CUDA kernels
+have no backward.
 
 Every family of ``repro`` is ported: dense, moe and vlm
 (``transformer``), encdec (``encdec``), and the ssm (xLSTM) and hybrid
@@ -17,10 +28,10 @@ import torch
 
 from ..device import resolve_device
 from . import encdec, recurrent, transformer
-from .common import COMPUTE_DTYPE, KERNELS, Kernels
+from .common import COMPUTE_DTYPE, KERNELS, PLAIN, Kernels, recording_sources
 
-__all__ = ["init_params", "params_from_numpy", "prefill", "decode_step", "cache_shape",
-           "extra_inputs"]
+__all__ = ["init_params", "params_from_numpy", "init_trainable", "trainable_from_numpy",
+           "load_masters", "loss", "prefill", "decode_step", "cache_shape", "extra_inputs"]
 
 
 def _module(cfg):
@@ -146,6 +157,58 @@ def _zamba_from_numpy(cfg, tree, t):
         "tail": (_per_layer(tree["tail"], j, t) for j in range(rem)),
         "shared": _map_tree(tree["shared"], t),
     })
+
+
+def _with_masters(build) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
+    with recording_sources() as sources:
+        model = build()
+    masters = {}
+    for name, p in model.named_parameters():
+        src = sources[p]
+        master = src.to(torch.float32)
+        # a float32 weight is its source's storage: the master gets its own
+        masters[name] = master.clone() if master.data_ptr() == p.data_ptr() else master
+        p.requires_grad_(True)
+    return model, masters
+
+
+def init_trainable(cfg, seed: int = 0, device="cuda", max_seq: int = 4096):
+    """(model, masters): :func:`init_params`' model with every parameter
+    requiring grad, and {parameter name: its float32 value before the cast
+    to the module's type}."""
+    return _with_masters(lambda: init_params(cfg, seed, device, max_seq))
+
+
+def trainable_from_numpy(cfg, tree: Mapping[str, Any], device="cuda"):
+    """(model, masters) as :func:`init_trainable` gives them, from
+    ``repro``'s float32 parameter tree (:func:`params_from_numpy`)."""
+    return _with_masters(lambda: params_from_numpy(cfg, tree, device))
+
+
+@torch.no_grad()
+def load_masters(model: torch.nn.Module, masters: Mapping[str, Any]) -> None:
+    """Cast each master (a tensor or a numpy array) into the module's
+    parameter of that name, in its type and on its device."""
+    for name, p in model.named_parameters():
+        p.copy_(torch.as_tensor(masters[name]))
+
+
+def loss(cfg, model, batch: Dict[str, torch.Tensor], remat: bool = True,
+         kernels: Kernels = PLAIN) -> Tuple[torch.Tensor, torch.Tensor]:
+    """batch {"tokens", "labels"} [B, S] (vlm: and "vision"; encdec: and
+    "audio", of :func:`extra_inputs`' shapes) → (loss, ce), 0-d float32
+    tensors with the module's parameters in their graph."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    if cfg.family == "hybrid":
+        return recurrent.zamba_loss(cfg, model, tokens, labels, remat, kernels)
+    if cfg.family == "ssm":
+        return recurrent.xlstm_loss(cfg, model, tokens, labels, remat, kernels)
+    if cfg.family == "encdec":
+        return encdec.encdec_loss(cfg, model, tokens, labels, batch["audio"], remat, kernels)
+    if cfg.family in ("dense", "moe", "vlm"):
+        return transformer.lm_loss(cfg, model, tokens, labels, batch.get("vision"), remat,
+                                   kernels)
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def prefill(cfg, params, batch: Dict[str, torch.Tensor], max_seq: int,

@@ -6,15 +6,23 @@ float32; activations and matmuls run in bfloat16; norm statistics, RoPE and
 softmax statistics in float32. The port stores each matmul weight once in
 bfloat16 (``repro`` casts the float32 weight at every use, which gives the
 same bfloat16 value every time); norm weights stay float32.
+
+Training keeps ``repro``'s float32 parameters as masters beside the module
+(``recording_sources`` gives each parameter's float32 source), takes the
+loss through :data:`PLAIN` under autograd (``softmax_cross_entropy``), and
+rematerializes where ``repro`` does (``run_layer``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import ops as attention_ops
 from ..kernels.flash_attention.ops import from_bkv, to_bkv
@@ -30,7 +38,8 @@ NEG_INF = -1e30  # the masked scores' fill, as repro/models/attention.py has it
 
 __all__ = [
     "COMPUTE_DTYPE", "PARAM_DTYPE", "NEG_INF", "Kernels", "KERNELS", "PLAIN", "dense_init",
-    "ones_init", "zeros_init", "frozen", "rmsnorm", "layernorm", "apply_rope", "position",
+    "ones_init", "zeros_init", "frozen", "recording_sources", "rmsnorm", "layernorm",
+    "apply_rope", "position", "softmax_cross_entropy", "run_layer",
 ]
 
 
@@ -83,9 +92,31 @@ def zeros_init(gen: torch.Generator, shape: Tuple[int, ...]) -> torch.Tensor:
     return torch.zeros(shape, device=gen.device, dtype=PARAM_DTYPE)
 
 
+_SOURCES: contextvars.ContextVar[Optional[Dict[nn.Parameter, torch.Tensor]]] = (
+    contextvars.ContextVar("frozen_sources", default=None))
+
+
 def frozen(t: torch.Tensor, dtype: torch.dtype) -> nn.Parameter:
-    """An inference-only parameter holding ``t`` cast to ``dtype``."""
-    return nn.Parameter(t.to(dtype), requires_grad=False)
+    """An inference-only parameter holding ``t`` cast to ``dtype``; inside
+    :func:`recording_sources`, ``t`` is also kept, keyed by the parameter."""
+    p = nn.Parameter(t.to(dtype), requires_grad=False)
+    sources = _SOURCES.get()
+    if sources is not None:
+        sources[p] = t
+    return p
+
+
+@contextlib.contextmanager
+def recording_sources() -> Iterator[Dict[nn.Parameter, torch.Tensor]]:
+    """{parameter: the tensor it was cast from}, filled by every
+    :func:`frozen` call inside the block in this thread: a model built from
+    a float32 tree in it yields the tree's unrounded values by parameter."""
+    sources: Dict[nn.Parameter, torch.Tensor] = {}
+    token = _SOURCES.set(sources)
+    try:
+        yield sources
+    finally:
+        _SOURCES.reset(token)
 
 
 def rmsnorm(x, w, eps: float = 1e-5, kernels: Kernels = KERNELS) -> torch.Tensor:
@@ -128,3 +159,21 @@ def position(pos, device) -> torch.Tensor:
     if isinstance(pos, torch.Tensor):
         return pos.to(device=device, dtype=torch.int64)
     return torch.full((), int(pos), dtype=torch.int64, device=device)
+
+
+def softmax_cross_entropy(logits, labels) -> torch.Tensor:
+    """Mean token cross-entropy, ``repro``'s: logits [..., V] of any type
+    in float32, logsumexp minus the label's logit, then the mean."""
+    logits = logits.to(torch.float32)
+    picked = torch.gather(logits, -1, labels.to(torch.int64)[..., None])[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - picked).mean()
+
+
+def run_layer(fn, *args, remat: bool):
+    """``fn(*args)``; with ``remat``, under non-reentrant activation
+    checkpointing, which keeps only the inputs and runs ``fn`` again in the
+    backward: ``repro``'s ``jax.checkpoint(policy=nothing_saveable)`` over
+    the same body. The body reads no random numbers."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)

@@ -25,12 +25,13 @@ import torch
 from torch import nn
 
 from .attention import Attention, init_attention
-from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, Kernels, dense_init, frozen,
-                     layernorm, ones_init, position, zeros_init)
+from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
+                     frozen, layernorm, ones_init, position, run_layer, softmax_cross_entropy,
+                     zeros_init)
 from .mlp import GeluMLP, init_gelu_mlp
 
-__all__ = ["EncDecLM", "init_encdec", "encode", "encdec_forward", "encdec_prefill",
-           "encdec_decode_step", "encdec_cache_shape"]
+__all__ = ["EncDecLM", "init_encdec", "encode", "encdec_forward", "encdec_loss",
+           "encdec_prefill", "encdec_decode_step", "encdec_cache_shape"]
 
 
 def _init_ln(gen, d) -> dict:
@@ -126,12 +127,14 @@ def init_encdec(cfg, gen: torch.Generator, max_seq: int = 4096) -> EncDecLM:
     })
 
 
-def encode(cfg, model: EncDecLM, audio, kernels: Kernels = KERNELS) -> torch.Tensor:
-    """audio [B, F, d] → encoder output [B, F, d] bf16."""
+def encode(cfg, model: EncDecLM, audio, kernels: Kernels = KERNELS,
+           remat: bool = False) -> torch.Tensor:
+    """audio [B, F, d] → encoder output [B, F, d] bf16; with ``remat``
+    each layer keeps only its input for the backward."""
     f = audio.shape[1]
     x = audio.to(COMPUTE_DTYPE) + model.pos_enc[:f]
     for layer in model.enc:
-        x = layer(x, kernels)
+        x = run_layer(layer, x, kernels, remat=remat)
     return model.enc_ln(x)
 
 
@@ -157,6 +160,25 @@ def _decoder(cfg, model: EncDecLM, tokens, audio, kernels: Kernels, cache=None):
 def encdec_forward(cfg, model: EncDecLM, tokens, audio, kernels: Kernels = KERNELS):
     """tokens [B, S], audio [B, F, d] → logits [B, S, V]."""
     return model.dec_ln(_decoder(cfg, model, tokens, audio, kernels)) @ model.head
+
+
+def _decoder_hidden(layer, x, enc_out, positions, kernels):
+    return layer(x, enc_out, positions, kernels)[0]
+
+
+def encdec_loss(cfg, model: EncDecLM, tokens, labels, audio, remat: bool = True,
+                kernels: Kernels = PLAIN):
+    """(ce, ce), ``repro``'s ``encdec_loss``: with ``remat`` every encoder
+    and decoder layer keeps only its inputs for the backward, as ``repro``
+    checkpoints both scan bodies."""
+    enc_out = encode(cfg, model, audio, kernels, remat=remat)
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)[None, :]
+    x = model.embed[tokens] + model.pos_dec[:s]
+    for layer in model.dec:
+        x = run_layer(_decoder_hidden, layer, x, enc_out, positions, kernels, remat=remat)
+    ce = softmax_cross_entropy(model.dec_ln(x) @ model.head, labels)
+    return ce, ce
 
 
 def encdec_cache_shape(cfg, batch: int, max_seq: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:

@@ -16,6 +16,10 @@ outputs are gathered back from the same rows. Every slot holds at most one
 choice, so the two give the same sums. The expert products are batched
 bf16 matmuls, as ``repro``'s einsums are plain XLA outside any kernel. No
 step reads a value on the host, so a decode step stays capturable.
+
+Training adds ``repro``'s Switch-style load-balance loss
+(:func:`load_balance_loss`), which the loss scales by 0.01; the routing
+itself carries no gradient, the gates and router probabilities do.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ from torch import nn
 
 from .common import COMPUTE_DTYPE, dense_init, frozen
 
-__all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing"]
+__all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing", "load_balance_loss"]
 
 GROUP_SIZE = 1024
 
@@ -105,8 +109,10 @@ class MoE(nn.Module):
         probs = self.router_probs(x)
         return route(probs, m.top_k, moe_capacity(m, probs.shape[1]))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, S, d] bf16 → [B, S, d] bf16."""
+    def forward(self, x: torch.Tensor, with_aux: bool = False):
+        """x [B, S, d] bf16 → [B, S, d] bf16; with ``with_aux``, (that, the
+        load-balance loss of the router probabilities, computed again from
+        x, and the routing's choices)."""
         m = self.cfg.moe
         b, s, d = x.shape
         r = self.routing(x)
@@ -127,4 +133,14 @@ class MoE(nn.Module):
         # repro's combine weights are the gates in float32 rounded to bf16
         w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(COMPUTE_DTYPE)
         y = (w.to(torch.float32)[..., None] * picked.to(torch.float32)).sum(dim=2)
-        return y.to(COMPUTE_DTYPE).reshape(b, s, d)
+        y = y.to(COMPUTE_DTYPE).reshape(b, s, d)
+        return (y, load_balance_loss(self.router_probs(x), r.sel)) if with_aux else y
+
+
+def load_balance_loss(probs: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """``repro``'s Switch-style auxiliary loss, E · Σ_e (mean probability
+    of e) · (mean choices of e per token), over the groups' tokens: probs
+    [G, t, E] float32, sel [G, t, k] → 0-d float32."""
+    e = probs.shape[-1]
+    chosen = F.one_hot(sel, e).to(torch.float32).sum(dim=2)      # [G, t, E]
+    return e * (probs.mean(dim=(0, 1)) * chosen.mean(dim=(0, 1))).sum()

@@ -33,15 +33,15 @@ import torch
 from torch import nn
 
 from .attention import Attention
-from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, Kernels, dense_init, frozen,
-                     ones_init, position, rmsnorm)
+from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
+                     frozen, ones_init, position, rmsnorm, run_layer, softmax_cross_entropy)
 from .mlp import SwiGLU, init_swiglu
 from .ssm import CONV_K, Mamba2, init_mamba, mamba_dims
 from .xlstm import (MLSTMCell, SLSTMCell, init_mlstm, init_slstm, mlstm_dims, slstm_dims)
 
-__all__ = ["XLSTMLM", "init_xlstm_lm", "xlstm_groups", "xlstm_prefill", "xlstm_decode_step",
-           "xlstm_cache_shape", "ZambaLM", "init_zamba_lm", "zamba_groups", "zamba_prefill",
-           "zamba_decode_step", "zamba_cache_shape"]
+__all__ = ["XLSTMLM", "init_xlstm_lm", "xlstm_groups", "xlstm_loss", "xlstm_prefill",
+           "xlstm_decode_step", "xlstm_cache_shape", "ZambaLM", "init_zamba_lm", "zamba_groups",
+           "zamba_loss", "zamba_prefill", "zamba_decode_step", "zamba_cache_shape"]
 
 
 def xlstm_groups(cfg) -> Tuple[int, int]:
@@ -130,6 +130,26 @@ def xlstm_cache_shape(cfg, batch: int, max_seq: int
 
 def _head(cfg, model: XLSTMLM, x, kernels: Kernels) -> torch.Tensor:
     return kernels.rmsnorm(x, model.final_norm, cfg.norm_eps) @ model.head
+
+
+def _hidden(block, *args):
+    """A residual block's output without its recurrent state."""
+    return block(*args)[0]
+
+
+def xlstm_loss(cfg, model: XLSTMLM, tokens, labels, remat: bool = True,
+               kernels: Kernels = PLAIN):
+    """(ce, ce), ``repro``'s ``xlstm_loss``: every block from the zero
+    state; with ``remat`` each mLSTM block keeps only its input for the
+    backward (``repro`` checkpoints its inner scan's body), the sLSTM blocks
+    keep everything, as in ``repro``."""
+    x = model.embed[tokens]
+    for group in model.groups:
+        for block in group.m:
+            x = run_layer(_hidden, block, x, kernels, remat=remat)
+        x, _ = group.slstm(x, None, kernels)
+    ce = softmax_cross_entropy(_head(cfg, model, x, kernels), labels)
+    return ce, ce
 
 
 def xlstm_prefill(cfg, model: XLSTMLM, tokens, max_seq: int, kernels: Kernels = KERNELS):
@@ -322,6 +342,27 @@ def zamba_prefill(cfg, model: ZambaLM, tokens, max_seq: int, kernels: Kernels = 
         x, state = block(x, kernels)
         _store(cache["tail"], state, j)
     return _zamba_head(cfg, model, x[:, -1:], kernels), cache
+
+
+def zamba_loss(cfg, model: ZambaLM, tokens, labels, remat: bool = True,
+               kernels: Kernels = PLAIN):
+    """(ce, ce), ``repro``'s ``zamba_loss``: with ``remat`` each Mamba2
+    block and each application of the shared block keeps only its inputs
+    for the backward, as ``repro`` checkpoints them. The shared block's
+    weights are one set of bfloat16 parameters used once per group, so
+    autograd adds their gradients in bfloat16 (``repro`` adds the float32
+    casts of the same bfloat16 cotangents); the gradient tests count those
+    additions in their bound."""
+    positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
+    x = e0 = model.embed[tokens]
+    for group in model.groups:
+        for block in group:
+            x = run_layer(_hidden, block, x, kernels, remat=remat)
+        x = run_layer(_hidden, model.shared, x, e0, positions, kernels, remat=remat)
+    for block in model.tail:
+        x = run_layer(_hidden, block, x, kernels, remat=remat)
+    ce = softmax_cross_entropy(_zamba_head(cfg, model, x, kernels), labels)
+    return ce, ce
 
 
 def zamba_decode_step(cfg, model: ZambaLM, cache, token, pos, kernels: Kernels = KERNELS):

@@ -26,12 +26,12 @@ import torch
 from torch import nn
 
 from .attention import Attention, init_attention
-from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, Kernels, dense_init, frozen,
-                     ones_init, position, rmsnorm)
+from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
+                     frozen, ones_init, position, rmsnorm, run_layer, softmax_cross_entropy)
 from .mlp import SwiGLU, init_swiglu
 from .moe import MoE, init_moe
 
-__all__ = ["DecoderLM", "init_lm", "lm_forward", "lm_prefill", "lm_decode_step",
+__all__ = ["DecoderLM", "init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
            "lm_cache_shape", "vlm_layout"]
 
 
@@ -68,11 +68,20 @@ class DecoderLayer(nn.Module):
         self.mlp = MoE(cfg, p["moe"]) if cfg.family == "moe" else SwiGLU(p["mlp"])
 
     def forward(self, x, positions, kernels: Kernels = KERNELS):
+        x, kv, _ = self.block(x, positions, kernels)
+        return x, kv
+
+    def block(self, x, positions, kernels: Kernels = KERNELS, with_aux: bool = False):
+        """(x after the layer, (k, v), the MoE load-balance loss when
+        ``with_aux`` on a moe layer, else None)."""
         eps = self.cfg.norm_eps
         a, kv = self.attn(rmsnorm(x, self.ln1, eps, kernels), positions, kernels)
         x = x + a
-        x = x + self.mlp(rmsnorm(x, self.ln2, eps, kernels))
-        return x, kv
+        h = rmsnorm(x, self.ln2, eps, kernels)
+        if with_aux and isinstance(self.mlp, MoE):
+            m, aux = self.mlp(h, with_aux=True)
+            return x + m, kv, aux
+        return x + self.mlp(h), kv, None
 
     def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
         eps = self.cfg.norm_eps
@@ -204,6 +213,38 @@ def lm_forward(cfg, model: DecoderLM, tokens, kernels: Kernels = KERNELS,
                vision=None) -> torch.Tensor:
     """tokens [B, S] (and vlm's vision [B, n_vision, d]) → logits [B, S, V]."""
     return _head(cfg, model, _trunk(cfg, model, tokens, kernels, vision=vision), kernels)
+
+
+def _loss_layer(layer: DecoderLayer, x, positions, kernels: Kernels):
+    x, _, aux = layer.block(x, positions, kernels, with_aux=True)
+    return x, aux
+
+
+def _loss_cross(layer: CrossLayer, x, vision, kernels: Kernels):
+    return layer(x, vision, kernels)[0]
+
+
+def lm_loss(cfg, model: DecoderLM, tokens, labels, vision=None, remat: bool = True,
+            kernels: Kernels = PLAIN):
+    """(loss, ce), ``repro``'s ``lm_loss``: the mean cross-entropy of the
+    logits against ``labels`` [B, S], plus 0.01 · the layers' summed
+    load-balance losses for moe. With ``remat`` each self layer and each
+    vlm cross layer keeps only its input for the backward, as ``repro``'s
+    checkpointed scan bodies do."""
+    if cfg.family == "vlm" and vision is None:
+        raise ValueError(f"{cfg.name}: the vlm family needs the vision stand-in")
+    positions = _positions(tokens.shape[1], tokens.device)
+    x = model.embed[tokens]
+    aux = None
+    for i, layer in enumerate(model.layers):
+        x, a = run_layer(_loss_layer, layer, x, positions, kernels, remat=remat)
+        if a is not None:
+            aux = a if aux is None else aux + a
+        g = _cross_after(cfg, i)
+        if g is not None:
+            x = run_layer(_loss_cross, model.cross[g], x, vision, kernels, remat=remat)
+    ce = softmax_cross_entropy(_head(cfg, model, x, kernels), labels)
+    return (ce + 0.01 * aux if aux is not None else ce), ce
 
 
 def lm_cache_shape(cfg, batch: int, max_seq: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:

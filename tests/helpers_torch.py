@@ -5,10 +5,20 @@ Graphs and cost models cross as plain data (``graph_from_description``,
 reference's CSR oracle ``repro/kernels/partition_sweep/ref.py`` cannot be
 imported the normal way (its package ``__init__`` pulls in the Pallas
 wrapper), so :func:`load_ref_oracle` loads it by file path.
+
+Training's tests carry ``repro``'s parameter tree across as numpy and map
+each of the port's parameters back to the elements of ``repro``'s
+gradient tree (:func:`leaf_index`); the tolerance of a gradient leaf is
+counted in :func:`grad_sites`.
 """
 
+import contextlib
 import importlib.util
 from pathlib import Path
+
+import jax
+import numpy as np
+import torch
 
 import repro.core
 from repro.core.cost import cost_scalars as ref_cost_scalars
@@ -63,3 +73,113 @@ def port_placement_spec(spec):
                               init_s=lk.init_s, name=lk.name) for lk in spec.links)
     return P.PlacementSpec(nodes=nodes, links=links, q_scales=spec.q_scales,
                            memory_scales=spec.memory_scales)
+
+
+# -- training: the loss and its gradients against ``repro``'s ---------------------------
+#
+# Tolerance of a gradient leaf: n·U·max|reference leaf|, U = 2^-9, the budget
+# per bf16 rounding site of ``tests/test_torch_serve.py``. n = 2·n_fwd + 1 + r:
+# n_fwd the forward sites up to the logits (the counts of the serving tests,
+# :func:`forward_sites`); the backward mirrors each of them, since the
+# cotangent through a bf16 value is itself bf16; the leaf's own
+# weight-gradient product rounds once more; and r counts the bf16 additions
+# of a weight's gradients beyond its first use, which autograd makes on the
+# bf16 parameter where ``repro`` adds float32 casts: the tied head (1), a moe
+# router (1: the load-balance loss reads the router probabilities computed
+# again), zamba2's shared block (one per group after the first) and an embedding
+# row (one per repeat of its token in the batch; XLA's scatter-add also
+# adds in bf16, in another order). The CE is float32 from bf16 logits: it
+# moves by at most twice their largest move, 2·n_fwd·U·max|logits|; moe's
+# loss adds 0.01·aux, held to n_fwd·U of it.
+
+U = 2.0 ** -9
+
+
+def forward_sites(cfg) -> int:
+    """bf16 rounding sites from the tokens to the logits: a self layer 21
+    (attention with QKV bias 12, SwiGLU 5, two norms, two residual adds), a
+    moe layer 24, a vlm cross layer 15, a whisper encoder layer 22 and
+    decoder layer 36, the embedding, final norm and head 4
+    (``tests/test_torch_zoo_models.py``); an mLSTM block 14, an sLSTM block
+    12, plus 2 (``tests/test_torch_xlstm.py``); a Mamba2 block 17 and a
+    shared-block application 16, plus 2 (``tests/test_torch_hybrid.py``)."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        n_s = L // cfg.slstm_every
+        return 14 * (L - n_s) + 12 * n_s + 2
+    if cfg.family == "hybrid":
+        return 17 * L + 16 * (L // cfg.attn_every) + 2
+    if cfg.family == "encdec":
+        return 22 * cfg.n_encoder_layers + 36 * L + 4
+    if cfg.family == "vlm":
+        n_cross = L // cfg.cross_attn_every
+        return 21 * (L - n_cross) + 15 * n_cross + 4
+    return (24 if cfg.family == "moe" else 21) * L + 4
+
+
+def grad_sites(cfg, tokens) -> int:
+    """n of a gradient leaf's tolerance (see above), for a batch of
+    ``tokens``."""
+    reuse = int(np.bincount(np.asarray(tokens).ravel()).max()) - 1
+    if cfg.tie_embeddings or cfg.family == "moe":
+        reuse += 1
+    if cfg.family == "hybrid":
+        reuse += cfg.n_layers // cfg.attn_every - 1
+    return 2 * forward_sites(cfg) + 1 + reuse
+
+
+def leaf_index(cfg, tree):
+    """{the port's parameter name: int64 indices of its elements in the
+    concatenation of ``tree``'s flattened leaves (``jax.tree.leaves``
+    order)}: the port's model is built from a tree of the same structure
+    whose values are those indices, exact in its float32 masters."""
+    from repro_torch.models import api
+
+    leaves, treedef = jax.tree.flatten(tree)
+    ids, off = [], 0
+    for leaf in leaves:
+        n = int(np.prod(np.shape(leaf)))
+        ids.append(np.arange(off, off + n, dtype=np.float32).reshape(np.shape(leaf)))
+        off += n
+    assert off < 2 ** 24, "indices must be exact in float32"
+    _, masters = api.trainable_from_numpy(cfg, jax.tree.unflatten(treedef, ids), "cpu")
+    index = {k: v.numpy().astype(np.int64).ravel() for k, v in masters.items()}
+    assert np.array_equal(np.sort(np.concatenate(list(index.values()))), np.arange(off))
+    return index
+
+
+def flat_leaves(tree):
+    return np.concatenate([np.asarray(a, np.float32).ravel() for a in jax.tree.leaves(tree)])
+
+
+def grad_errors(model, index, want_flat, sites):
+    """{name: (max |Δ|, tolerance)} of each parameter's float32 gradient
+    against the reference's gradient at its elements."""
+    out = {}
+    for name, p in model.named_parameters():
+        want = want_flat[index[name]]
+        got = p.grad.to(torch.float32).numpy().ravel()
+        out[name] = (float(np.abs(got - want).max()), sites * U * float(np.abs(want).max()))
+    return out
+
+
+@contextlib.contextmanager
+def logits_seen():
+    """A list that receives max |logits| of every cross-entropy the port's
+    losses take inside the block."""
+    from repro_torch.models import common, encdec, recurrent, transformer
+
+    seen = []
+
+    def recorded(logits, labels):
+        seen.append(float(logits.detach().abs().max()))
+        return common.softmax_cross_entropy(logits, labels)
+
+    mods = (encdec, recurrent, transformer)
+    for m in mods:
+        m.softmax_cross_entropy = recorded
+    try:
+        yield seen
+    finally:
+        for m in mods:
+            m.softmax_cross_entropy = common.softmax_cross_entropy

@@ -2,8 +2,8 @@
 
 A fresh interpreter imports every ``repro_torch`` module and runs the
 head-count launcher on the CPU at a reduced size, the swarm CLI on the
-ns_mini fixture and ``dse --placement``; afterwards neither ``jax`` nor any
-``repro`` module may be loaded. The same rule is checked statically
+ns_mini fixture, ``dse --placement`` and two steps of the train CLI;
+afterwards neither ``jax`` nor any ``repro`` module may be loaded. The same rule is checked statically
 over the sources of the package and of ``chip_smoke.py``.
 """
 
@@ -35,7 +35,8 @@ def _forbidden(name: str) -> bool:
 def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
     mods = list(_modules())
     for m in ("launch.headcount", "core.placement", "core.placement_torch", "data.ns_optimizer",
-              "launch.swarm", "launch.dse", "launch.mesh"):
+              "launch.swarm", "launch.dse", "launch.mesh", "launch.train", "optim.adamw",
+              "checkpoint.burst_ckpt", "data.synthetic"):
         assert f"repro_torch.{m}" in mods
     ns = ["--prof", "tests/fixtures/ns_mini/prof.csv", "--dep", "tests/fixtures/ns_mini/dep.csv"]
     code = (
@@ -47,6 +48,9 @@ def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
         f"rc = rc or swarm.main({ns!r} + ['--device', 'cpu'])\n"
         "rc = rc or dse.main(['--placement', '--device', 'cpu', '--out',\n"
         f"                    {str(tmp_path / 'p.json')!r}])\n"
+        "from repro_torch.launch import train\n"
+        "rc = rc or train.main(['--device', 'cpu', '--steps', '2', '--batch', '2', '--seq',\n"
+        f"                      '16', '--ckpt-dir', {str(tmp_path / 'ck')!r}])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print('BAD', bad)\n"
         "sys.exit(rc if not bad else 3)\n"
@@ -58,6 +62,7 @@ def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
     assert "BAD []" in out.stdout
     assert '"phase": "execute"' in out.stdout
     assert "[swarm] ledger:" in out.stdout and "[dse] solved PlacementTable" in out.stdout
+    assert "[train] burst 1/1 committed" in out.stdout and "[train] done:" in out.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
