@@ -127,7 +127,19 @@ version on the card, and drives the port's paths:
    ten architectures at full width (b16 × 4096; remat b4 × 4096), each
    within its budget, offload and remat ``Infeasible`` at Q_min / 2, with
    ``h100_pipeline_model``'s constants (and a measured card-to-card copy
-   when more than one card is visible).
+   when more than one card is visible);
+15. the dry run (``dryrun``): ``repro_torch.launch.dryrun.main(["--all",
+   ...])`` counts every (architecture × shape) cell of the ten
+   architectures at full width on ``meta`` on the host, in worker
+   processes (40 records: 8 skipped, ``long_500k`` × the eight quadratic
+   architectures, as in ``repro``; 0 errors; each with ``repro``'s keys),
+   and runs the cells that fit one card there, each measured step at least
+   as long as its roofline bound and its peak at least its arguments; then
+   ``build_cell`` at shapes the earlier phases serve (qwen3-4b prefill b4 ×
+   512 and decode b4 at 528, xlstm-1.3b prefill b4 × 512, tinyllama-1.1b
+   train b8 × 128), counted and run on the card: the counted kernel calls
+   equal to the card's launches for the same step and to
+   ``step_launches``.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -1267,29 +1279,6 @@ def xlstm_f32_parity(cfg, params, dev):
     return sound, control_min
 
 
-def mlstm_work(bh, s, hd, L, elt):
-    """(bytes, operations) the chunked cell needs: q, k, v and the gates
-    read once, y and (C, n, m) written once; per (b·h, chunk) the C update
-    (2·L·hd²), q·C where C is not zero (2·L·hd² past the first chunk), the
-    causal halves of q·kᵀ and W·v (2·2·L(L+1)/2·hd), and q·n and the n
-    update (2·2·L·hd)."""
-    nc = s // L
-    nbytes = 4 * bh * s * hd * elt + 2 * bh * s * 4 + bh * (hd * hd + hd + 1) * 4
-    per_chunk = 2 * L * hd * hd + 2 * L * (L + 1) * hd + 4 * L * hd
-    ops = bh * (nc * per_chunk + (nc - 1) * 2 * L * hd * hd)
-    return nbytes, ops
-
-
-def mlstm_split_work(bh, s, hd, L):
-    """The bfloat16 kernel's operations by the rate they can run at:
-    (products of a float32 operand, three bf16 passes on the tensor cores:
-    the C update, q·C past the first chunk and W·v; q·kᵀ, exact in one
-    pass; q·n and the n update, on the CUDA cores)."""
-    nc = s // L
-    split = bh * (nc * 2 * L * hd * hd + (nc - 1) * 2 * L * hd * hd + nc * L * (L + 1) * hd)
-    return split, bh * nc * L * (L + 1) * hd, bh * nc * 4 * L * hd
-
-
 def mlstm_entry(dev, launches, errs):
     """Times and bounds of the mLSTM kernel at the two prefill shapes; the
     headline numbers are the b4 × 512 request's. ``bound_ms`` counts the
@@ -1299,6 +1288,7 @@ def mlstm_entry(dev, launches, errs):
     import re
 
     from repro_torch.kernels.mlstm_chunk.kernel import mlstm_chunk_bh_cuda
+    from repro_torch.kernels.mlstm_chunk.ops import split_work, work
     from repro_torch.kernels.mlstm_chunk.ref import mlstm_chunk_plain
 
     by_shape = {}
@@ -1314,9 +1304,8 @@ def mlstm_entry(dev, launches, errs):
             stages[short.group(0) if short else k[:60]] = v
         ms, how = (sum(t for t, _ in stages.values()), "profiler") if stages else (
             queued_ms(fn, 10), "queued_cuda_events")
-        L = min(chunk, s)
-        nbytes, ops = mlstm_work(bh, s, hd, L, args[0].element_size())
-        split, single, cuda = mlstm_split_work(bh, s, hd, L)
+        _, nbytes, ops = work(bh, s, hd, chunk, args[0].element_size())
+        split, single, cuda = split_work(bh, s, hd, chunk)
         t_ops = (3 * split + single) / PEAK_BF16_PER_S + cuda / PEAK_F32_PER_S
         t_bytes = nbytes / PEAK_BYTES_PER_S
         by_shape[name] = {"shape": [bh, s, hd, chunk], "ops": ops, "bytes": nbytes, "ms": ms,
@@ -1401,6 +1390,7 @@ def rmsnorm_entry(dev, launches, errs):
     import torch.nn.functional as F
 
     from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.kernels.rmsnorm.ops import work
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
 
     by_shape = {}
@@ -1415,8 +1405,8 @@ def rmsnorm_entry(dev, launches, errs):
         # x's type once, outside the timing
         w_lib = w.to(dtype)
         lib = cuda_ms(lambda: F.rms_norm(x, (d,), w_lib, 1e-6), 20)
-        nbytes = 2 * n * d * x.element_size() + 4 * d
-        bound, by = _bound(nbytes, 4 * n * d, PEAK_F32_PER_S)
+        _, nbytes, ops = work(n, d, x.element_size())
+        bound, by = _bound(nbytes, ops, PEAK_F32_PER_S)
         by_shape[name] = {"rows": n, "d": d, "ms": ms, "ms_from": how,
                           "profiled_launches": seen,
                           "wrapper_ms": cuda_ms(fn, 20),
@@ -1447,6 +1437,7 @@ def flash_entry(dev, launches, errs):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.flash_attention.ops import work
     from repro_torch.kernels.flash_attention.ref import attention_plain
 
     by_shape = {}
@@ -1462,9 +1453,9 @@ def flash_entry(dev, launches, errs):
         kl, vl = (t.reshape(b, kv, sk, hd) for t in (k, v))
         lib = cuda_ms(lambda: F.scaled_dot_product_attention(
             ql, kl, vl, is_causal=causal, enable_gqa=True), 10)
-        pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-        flops = 4 * b * h * pairs * hd
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        # the visible pairs' operations (work().ops), not the plain
+        # version's products over every pair (work().flops)
+        _, nbytes, flops = work(b, sq, sk, h, kv, hd, causal, q.element_size())
         bound, by = _bound(nbytes, flops, PEAK_BF16_PER_S)
         by_shape[name] = {"shape": [b, sq, sk, h, kv, hd], "flops": flops, "ms": ms,
                           "ms_from": how, "profiled_launches": seen,
@@ -3497,6 +3488,122 @@ def train_path(dev, workdir: Path) -> tuple:
     return {"train": launches}, sweep_launches
 
 
+# The dry run: every (arch × shape) cell counted on meta on the host in
+# worker processes, the cells that fit run on the card; then build_cell at
+# shapes the earlier phases serve, counted and run.
+DRYRUN_CELLS = 40
+DRYRUN_SKIPPED = 8        # long_500k × the eight quadratic architectures, as in repro
+DRYRUN_KEYS = ("arch", "shape", "mesh", "family", "status", "t_lower_s", "t_compile_s",
+               "n_chips", "memory", "cost_analysis", "collective_bytes_by_kind",
+               "collective_count_by_kind", "collective_bytes_total", "roofline", "dominant",
+               "model_flops_global", "useful_flops_ratio")
+DRYRUN_SERVED = (("qwen3-4b", "prefill", 4, 512), ("qwen3-4b", "decode", 4, 528),
+                 ("xlstm-1.3b", "prefill", 4, 512), ("tinyllama-1.1b", "train", 8, 128))
+
+
+def _held_to_count(where, roofline, step_s, peak, args_bytes, counted_peak) -> dict:
+    """The measured step against its count: counted work the card could not
+    have done in the measured time is an over-count; the card's peak holds
+    the arguments at least."""
+    bound_s = max(roofline["t_compute"], roofline["t_memory"])
+    if bound_s > step_s:
+        raise AssertionError(f"dryrun {where}: the roofline bound {bound_s} s exceeds the "
+                             f"measured step {step_s} s: the count over-counts")
+    if peak < args_bytes:
+        raise AssertionError(f"dryrun {where}: the card's peak {peak} B is below the "
+                             f"counted arguments {args_bytes} B")
+    return {"bound_s": bound_s, "step_s": step_s, "bound_share": bound_s / step_s,
+            "peak_bytes": peak, "peak_over_counted": peak / counted_peak}
+
+
+def dryrun_path(dev, workdir: Path) -> dict:
+    """``dryrun.main(["--all", ...])``: 40 records, 8 skipped, 0 errors,
+    each with repro's keys, every measured cell within its roofline bound;
+    then each DRYRUN_SERVED shape through ``build_cell``: its counted kernel
+    calls equal to the card's launches for the same step and to
+    ``step_launches``, its bound and peak held as above. Returns the
+    launches of the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.roofline import roofline_terms
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    counters = serving_launches()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--device", "cuda", "--out", str(workdir)])
+    all_s = time.perf_counter() - t0
+    recs = [json.loads(p.read_text()) for p in sorted(workdir.glob("*.json"))]
+    status = [r["status"] for r in recs]
+    skipped = sorted((r["arch"], r["shape"]) for r in recs if r["status"] == "skipped")
+    if (rc != 0 or len(recs) != DRYRUN_CELLS or status.count("error")
+            or len(skipped) != DRYRUN_SKIPPED
+            or any(shape != "long_500k" or get_config(a).is_subquadratic
+                   for a, shape in skipped)):
+        raise AssertionError(f"dryrun --all: exit {rc}, {len(recs)} records, "
+                             f"{status.count('error')} errors, skipped {skipped}: "
+                             f"{[r.get('error') for r in recs if r['status'] == 'error']}")
+    missing = {(r["arch"], r["shape"]): [k for k in DRYRUN_KEYS if k not in r]
+               for r in recs if r["status"] == "ok"}
+    if any(missing.values()):
+        raise AssertionError(f"dryrun records without repro's keys: {missing}")
+    measured = {}
+    for r in recs:
+        if "measured" in r:
+            m, mem = r["measured"], r["memory"]
+            measured[f"{r['arch']} {r['shape']}"] = _held_to_count(
+                f"{r['arch']} {r['shape']}", r["roofline"], m["step_s"], m["peak_bytes"],
+                mem["argument_size_in_bytes"],
+                mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"])
+    fits = sorted(f"{r['arch']} {r['shape']}" for r in recs if r.get("fits"))
+    if sorted(measured) != fits:
+        raise AssertionError(f"dryrun: cells that fit {fits}, measured {sorted(measured)}")
+    all_launches = {k: fn.launches for k, fn in counters.items()}
+    emit({"phase": "dryrun_all", "seconds": all_s,
+          "count_workers": len(os.sched_getaffinity(0)), "records": len(recs),
+          "ok": status.count("ok"), "skipped": len(skipped), "errors": 0, "fits": fits,
+          "measured": measured, "launches": all_launches,
+          "count_s": {f"{r['arch']} {r['shape']}": r["t_compile_s"]
+                      for r in recs if r["status"] == "ok"},
+          "cards_needed": {f"{r['arch']} {r['shape']}": r["cards_needed"]
+                           for r in recs if r["status"] == "ok"}})
+
+    served = {}
+    for arch, kind, b, seq in DRYRUN_SERVED:
+        cfg = get_config(arch)
+        cell = build_cell(cfg, ShapeConfig(f"{kind}_b{b}_s{seq}", seq, b, kind), dev)
+        t0 = time.perf_counter()
+        _, stats = cell.count()
+        count_s = time.perf_counter() - t0
+        counted = {k: stats.kernel_calls.get(k, 0) for k in counters}
+        pre, step = step_launches(cfg)
+        want = {"prefill": pre, "decode": step, "train": dict.fromkeys(counters, 0)}[kind]
+        m = dryrun.measure(cell, 0, lambda: {k: fn.launches for k, fn in counters.items()})
+        name = f"{arch} {kind} b{b} x {seq}"
+        if not (counted == m["launched"] == want):
+            raise AssertionError(f"dryrun {name}: counted kernel calls {counted}, the card "
+                                 f"launched {m['launched']}, step_launches {want}")
+        served[name] = {"kernel_calls": counted, "count_s": count_s,
+                        "first_step_s": m["first_step_s"], "flops": stats.flops,
+                        "bytes": stats.bytes,
+                        **_held_to_count(name, roofline_terms(stats.flops, stats.bytes, 0.0),
+                                         m["step_s"], m["peak_bytes"], stats.argument_bytes,
+                                         stats.peak_bytes)}
+        del cell
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    emit({"phase": "dryrun_served", "seconds": time.perf_counter() - t_phase,
+          "cells": served, "launches": launches})
+    return launches
+
+
 # The activation solvers: repro's planner shapes (tests/test_planners.py),
 # (batch, seq); offload at OFFLOAD_BUDGET · Q_min, remat at REMAT_BUDGET ·
 # Q_min, PIPELINE_STAGES stages; each must raise Infeasible at
@@ -3956,6 +4063,9 @@ def main() -> int:
 
     # -- the activation solvers over the ten architectures ---------------------
     planners_path()
+
+    # -- the dry run: every (arch × shape) cell counted, the cells that fit run
+    launches_by_path["dryrun"] = dryrun_path(dev, ROOT / "build" / "dryrun")
 
     # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and

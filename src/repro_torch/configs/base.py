@@ -2,15 +2,18 @@
 
 One :class:`ModelConfig` per architecture (see the sibling modules). Every
 field is static metadata, field for field the reference's, so a config and
-its analytic parameter count compare equal across the two packages.
+its analytic parameter count compare equal across the two packages. The
+dry run's four cell shapes (:data:`SHAPES`) and their skip rule
+(:func:`shape_applicable`) are the reference's too.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
-__all__ = ["MoEConfig", "ModelConfig", "REGISTRY", "register", "get_config"]
+__all__ = ["MoEConfig", "ModelConfig", "ShapeConfig", "SHAPES", "REGISTRY", "register",
+           "get_config", "shape_applicable"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,6 +127,22 @@ class ModelConfig:
         return int(self.param_count() - inactive)
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
 REGISTRY: Dict[str, ModelConfig] = {}
 
 
@@ -139,3 +158,11 @@ def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown architecture {name!r}; have {sorted(REGISTRY)}")
     return REGISTRY[name]
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch × shape) is a runnable cell; the reason if it is
+    skipped: long_500k is for sub-quadratic architectures only."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic:
+        return False, "long_500k requires sub-quadratic attention (SSM/hybrid only)"
+    return True, ""

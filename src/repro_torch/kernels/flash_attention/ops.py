@@ -8,16 +8,21 @@ alone: on a card the kernel runs (or the call raises); on the CPU the plain
 version runs. The kernel has no backward: on a card, with grad mode on, a
 tensor that requires grad makes the call raise (its output would carry no
 gradient); the loss runs the plain version instead.
+
+:func:`work` is one call's work (``kernels/counted.py``), and
+:func:`flash_attention_counted` the stand-in that adds it to a count on
+``meta``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..counted import Work, add_work
 from .kernel import flash_attention_bkv_cuda
 from .ref import attention_plain
 
-__all__ = ["flash_attention", "to_bkv", "from_bkv"]
+__all__ = ["flash_attention", "to_bkv", "from_bkv", "work", "flash_attention_counted"]
 
 
 def to_bkv(q, k, v):
@@ -37,17 +42,54 @@ def from_bkv(o, b: int):
     return o.reshape(b, kv, sq, g, hd).transpose(1, 2).reshape(b, sq, kv * g, hd)
 
 
+def _check_heads(q, k) -> None:
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
+                         f"{k.shape[2]} KV heads")
+
+
 def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd] on q's device (tensors, or
     numpy for the CPU) → [B, Sq, H, hd] in q's dtype, on q's device. H must
     be a multiple of KV (GQA)."""
     q, k, v = (torch.as_tensor(t) for t in (q, k, v))
-    if q.shape[2] % k.shape[2]:
-        raise ValueError(f"{q.shape[2]} query heads are not a multiple of "
-                         f"{k.shape[2]} KV heads")
+    _check_heads(q, k)
     if q.is_cuda and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention: the CUDA kernel has no backward; a tensor "
                            "requires grad (run the plain version, models.common.PLAIN)")
     qg, kg, vg = to_bkv(q, k, v)
     run = flash_attention_bkv_cuda if q.is_cuda else attention_plain
     return from_bkv(run(qg, kg, vg, causal=causal), q.shape[0])
+
+
+def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs the mask leaves, positions counted from 0 on both
+    sides: Σ_i min(i + 1, sk) when causal, else sq·sk."""
+    if not causal:
+        return sq * sk
+    if sq <= sk:
+        return sq * (sq + 1) // 2
+    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+
+def work(b: int, sq: int, sk: int, h: int, kv: int, hd: int, causal: bool,
+         elt: int) -> Work:
+    """One call: the plain version's two products over every (query, key)
+    pair, 2·2·B·H·Sq·Sk·hd (the mask applies after q·kᵀ); q and k, v read
+    once and o written once; the operations the visible pairs need."""
+    return Work(flops=4 * b * h * sq * sk * hd,
+                bytes=(2 * b * sq * h + 2 * b * sk * kv) * hd * elt,
+                ops=4 * b * h * _visible_pairs(sq, sk, causal) * hd)
+
+
+def flash_attention_counted(q, k, v, *, causal: bool = True) -> torch.Tensor:
+    """The kernel's stand-in on ``meta``: adds :func:`work` to the open
+    count and returns an empty [B, Sq, H, hd] in q's dtype, through the
+    wrapper's own layout copies."""
+    _check_heads(q, k)
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    add_work("flash_attention", (q, k, v), work(b, sq, sk, h, kv, hd, causal,
+                                                q.element_size()))
+    qg, _, _ = to_bkv(q, k, v)
+    return from_bkv(torch.empty_like(qg), b)

@@ -71,15 +71,15 @@ def batch_tensors(cfg, batch: Dict[str, np.ndarray], device,
 
 
 def train_step(cfg, model, state, adamw: AdamWConfig,
-               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+               batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
     """One step: the loss and its gradients through autograd (the plain
-    versions, with remat), AdamW on the float32 masters ``state["params"]``
-    and the moments of ``state["opt_state"]`` in place, then the masters
-    cast into the module. Returns the loss before the update, a 0-d
-    float32 tensor."""
+    versions, with remat unless ``remat`` is False), AdamW on the float32
+    masters ``state["params"]`` and the moments of ``state["opt_state"]`` in
+    place, then the masters cast into the module. Returns the loss before
+    the update, a 0-d float32 tensor."""
     for p in model.parameters():
         p.grad = None
-    loss, _ = api.loss(cfg, model, batch, remat=True, kernels=PLAIN)
+    loss, _ = api.loss(cfg, model, batch, remat=remat, kernels=PLAIN)
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in model.named_parameters()}

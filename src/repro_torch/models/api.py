@@ -17,21 +17,30 @@ have no backward.
 Every family of ``repro`` is ported: dense, moe and vlm
 (``transformer``), encdec (``encdec``), and the ssm (xLSTM) and hybrid
 (Zamba2) families (``recurrent``).
+
+``init_params(cfg, None, device="meta")`` is ``repro``'s abstract
+``init_params(cfg, None)``: the module on ``meta``, its parameters' names,
+shapes and types those of a seeded model, and no numbers;
+:func:`input_specs` gives a dry-run cell's inputs as (shape, dtype).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from . import encdec, recurrent, transformer
-from .common import COMPUTE_DTYPE, KERNELS, PLAIN, Kernels, recording_sources
+from .common import (COMPUTE_DTYPE, KERNELS, PLAIN, AbstractGenerator, Kernels,
+                     recording_sources)
 
 __all__ = ["init_params", "params_from_numpy", "init_trainable", "trainable_from_numpy",
-           "load_masters", "loss", "prefill", "decode_step", "cache_shape", "extra_inputs"]
+           "load_masters", "loss", "prefill", "decode_step", "cache_shape", "extra_inputs",
+           "input_specs", "TOKEN_DTYPE"]
+
+TOKEN_DTYPE = torch.int64  # the port's token ids (``repro``'s are int32)
 
 
 def _module(cfg):
@@ -45,14 +54,21 @@ def _module(cfg):
     raise ValueError(f"unknown model family {cfg.family!r}")
 
 
-def init_params(cfg, seed: int = 0, device="cuda", max_seq: int = 4096):
+def init_params(cfg, seed: Optional[int] = 0, device="cuda", max_seq: int = 4096):
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (the numbers differ from ``repro``'s ``PRNGKey(seed)``; use
     :func:`params_from_numpy` to run the reference's parameters).
     ``max_seq`` sizes encdec's decoder positions, as in ``repro``; the other
-    families take no part of it."""
+    families take no part of it. ``seed=None`` builds the module without
+    numbers on ``device="meta"`` (any other device raises)."""
     module = _module(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    if seed is None:
+        if torch.device(device).type != "meta":
+            raise ValueError(f"a model without numbers (seed None) is built on 'meta', "
+                             f"not {device!r}")
+        gen = AbstractGenerator()
+    else:
+        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     with torch.no_grad():
         if cfg.family == "hybrid":
             return recurrent.init_zamba_lm(cfg, gen)
@@ -73,6 +89,27 @@ def extra_inputs(cfg, batch: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtyp
     if cfg.family == "encdec":
         out["audio"] = ((batch, cfg.n_audio_frames, cfg.d_model), COMPUTE_DTYPE)
     return out
+
+
+def input_specs(cfg, shape) -> Dict[str, Any]:
+    """A dry-run cell's inputs as (shape, dtype), ``repro``'s ``input_specs``
+    in the port's convention (token ids :data:`TOKEN_DTYPE`):
+
+    train:   {"tokens", "labels" [B, S], extra...}
+    prefill: {"tokens" [B, S], extra...}
+    decode:  {"token" [B, 1], "pos" (), "cache": :func:`cache_shape` (B, S)}
+
+    ``extra`` is :func:`extra_inputs` (vlm's "vision", encdec's "audio")."""
+    b, s = shape.global_batch, shape.seq_len
+    tok = ((b, s), TOKEN_DTYPE)
+    if shape.kind == "train":
+        return {"tokens": tok, "labels": tok, **extra_inputs(cfg, b)}
+    if shape.kind == "prefill":
+        return {"tokens": tok, **extra_inputs(cfg, b)}
+    if shape.kind == "decode":
+        return {"token": ((b, 1), TOKEN_DTYPE), "pos": ((), TOKEN_DTYPE),
+                "cache": cache_shape(cfg, b, s)}
+    raise ValueError(f"unknown shape kind {shape.kind!r}")
 
 
 def _per_layer(stacked, i, t):
@@ -172,10 +209,10 @@ def _with_masters(build) -> Tuple[torch.nn.Module, Dict[str, torch.Tensor]]:
     return model, masters
 
 
-def init_trainable(cfg, seed: int = 0, device="cuda", max_seq: int = 4096):
+def init_trainable(cfg, seed: Optional[int] = 0, device="cuda", max_seq: int = 4096):
     """(model, masters): :func:`init_params`' model with every parameter
     requiring grad, and {parameter name: its float32 value before the cast
-    to the module's type}."""
+    to the module's type}; with ``seed=None``, both on ``meta``."""
     return _with_masters(lambda: init_params(cfg, seed, device, max_seq))
 
 

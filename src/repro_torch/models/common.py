@@ -11,6 +11,10 @@ Training keeps ``repro``'s float32 parameters as masters beside the module
 (``recording_sources`` gives each parameter's float32 source), takes the
 loss through :data:`PLAIN` under autograd (``softmax_cross_entropy``), and
 rematerializes where ``repro`` does (``run_layer``).
+
+A model built without numbers (on ``meta``, :class:`AbstractGenerator`)
+runs through :data:`COUNTED`, the kernels' stand-ins, when a step is
+counted rather than run (``launch/roofline.py``).
 """
 
 from __future__ import annotations
@@ -37,7 +41,8 @@ PARAM_DTYPE = torch.float32
 NEG_INF = -1e30  # the masked scores' fill, as repro/models/attention.py has it
 
 __all__ = [
-    "COMPUTE_DTYPE", "PARAM_DTYPE", "NEG_INF", "Kernels", "KERNELS", "PLAIN", "dense_init",
+    "COMPUTE_DTYPE", "PARAM_DTYPE", "NEG_INF", "Kernels", "KERNELS", "PLAIN", "COUNTED",
+    "AbstractGenerator", "dense_init",
     "ones_init", "zeros_init", "frozen", "recording_sources", "rmsnorm", "layernorm",
     "apply_rope", "position", "softmax_cross_entropy", "run_layer",
 ]
@@ -54,7 +59,10 @@ class Kernels:
     :data:`KERNELS`
     dispatches on the tensors' device (the CUDA kernels on a card, the plain
     versions on the CPU); :data:`PLAIN` runs the plain versions on any
-    device and is the kernels' referee on the card.
+    device and is the kernels' referee on the card; :data:`COUNTED` runs on
+    ``meta`` only, each function adding its kernel's work to an open count
+    and returning empty outputs of the kernel's shapes and types (it raises
+    on any other device).
     """
 
     rmsnorm: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
@@ -74,13 +82,30 @@ def _plain_mlstm(q, k, v, i_pre, f_pre):
     return mlstm_ops.in_model_layout(mlstm_chunk_plain, q, k, v, i_pre, f_pre)
 
 
+def _counted_attention(q, k, v, causal):
+    return attention_ops.flash_attention_counted(q, k, v, causal=causal)
+
+
 KERNELS = Kernels(rmsnorm=rmsnorm_ops.rmsnorm, attention=_kernel_attention,
                   mlstm=mlstm_ops.mlstm_cell)
 PLAIN = Kernels(rmsnorm=rmsnorm_plain, attention=_plain_attention, mlstm=_plain_mlstm)
+COUNTED = Kernels(rmsnorm=rmsnorm_ops.rmsnorm_counted, attention=_counted_attention,
+                  mlstm=mlstm_ops.mlstm_cell_counted)
+
+
+class AbstractGenerator:
+    """Stands in for a ``torch.Generator`` when a model is built without
+    numbers: the initializers make empty ``meta`` tensors of the same
+    shapes and types (a generator cannot live on ``meta``)."""
+
+    device = torch.device("meta")
 
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], scale: float = 0.02) -> torch.Tensor:
-    """Normal(0, scale²) in float32 on the generator's device."""
+    """Normal(0, scale²) in float32 on the generator's device (empty on
+    ``meta``)."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, device=gen.device, dtype=PARAM_DTYPE)
     return torch.randn(shape, generator=gen, device=gen.device, dtype=PARAM_DTYPE) * scale
 
 
