@@ -41,11 +41,17 @@ version on the card, and drives the port's paths:
    mLSTM prefill cell through the chunked-mLSTM kernel), checked cell by
    cell at full width against rounding-derived bounds, and end to end in
    float32 against the plain path on a float32 copy of the weights;
-5. each decode step of both models is one CUDA graph replay (one capture
-   per request shape, counted by ``TRACE_COUNT``; a replay adds the kernel
-   launches its graph holds), held against the eager masked decode on the
-   same request (each step's logits, the tokens, no capture on a second
-   request), with decode ms/token and one step's idle share of each path;
+5. each prefill and each decode step of both models is one CUDA graph
+   replay (one prefill and one decode capture per request shape, counted by
+   ``TRACE_COUNT``; a replay adds the kernel launches its graph holds):
+   ``serve_prefill_graphs`` holds the graphed prefill's logits and every
+   cache leaf bitwise to the eager prefill's on new inputs, no capture on a
+   second request, and prints each capture's recording and instantiation
+   seconds and pool bytes and the warm prefill's host time, busy time and
+   idle share beside the eager one's; ``serve_step_graphs`` holds the
+   graphed decode against the eager masked decode on the same request
+   (each step's logits, the tokens, no capture on a second request), with
+   decode ms/token and one step's idle share of each path;
 6. planned serving (``serve(plan_table=...)``) at full width on the time
    tables the plan_table phase built: qwen3-4b b4 × p512 × g16 in 4 energy
    cycles with one power failure, xlstm-1.3b b1 × p512 × g8 in 3 cycles,
@@ -87,10 +93,11 @@ version on the card, and drives the port's paths:
    phi3.5-moe-42b-a6.6b (16 of its 32 layers, b4 × p512 × g16),
    deepseek-coder-33b (b1 × p512 × g8) and zamba2-7b (81 layers: 13 groups
    of 6 Mamba2 blocks, each followed by the shared attention block, and 3
-   tail blocks; b4 × p512 × g16 and b1 × p2048 × g8), each served at full width with
-   random weights from seed 0 through ``serve`` and the graphed decode
-   (launches, one capture per request shape, the parameters held beside
-   ``param_count()``), the flash kernel held in every prefill cell (causal
+   tail blocks; b4 × p512 × g16 and b1 × p2048 × g8), each served at full
+   width with random weights from seed 0 through ``serve`` and the graphed
+   prefill and decode (launches, one capture of each per request shape,
+   the parameters held beside ``param_count()``; ``serve_prefill_graphs``
+   as in 5), the flash kernel held in every prefill cell (causal
    self-attention, the vlm's cross-attention over 1601 vision tokens,
    whisper's 1500 × 1500 encoder and its cross-attention), the kernel path
    against the plain path within a limit derived from rounding with a
@@ -117,8 +124,9 @@ version on the card, and drives the port's paths:
    the train CLI crashes after burst 1 and resumes (qwen1.5-0.5b smoke, 6
    steps, deterministic algorithms), its losses equal to an uninterrupted
    run's within 1e-6; then ``train(smoke=False)`` trains tinyllama-1.1b at
-   full width and depth with ``repro``'s CLI defaults (50 steps of b8 ×
-   128, a checkpoint committed every 20 steps under ``build/train``),
+   full width and 11 of its 22 layers (the cut keeps the run's time) with
+   ``repro``'s CLI defaults (50 steps of b8 × 128, a checkpoint committed
+   every 20 steps under ``build/train``),
    its loss must fall, a warm step is traced, and the checkpoint cadence
    is planned with the measured step time and state bytes on the numpy
    oracle and on the sweep kernel, with equal bursts;
@@ -684,8 +692,10 @@ def model_kernel_checks(dev):
 def serve_path(dev, cfg, requests, want_params, want_launches):
     """A serving main path: build ``cfg``'s model at full width, serve
     ``requests`` (batch, prompt, generated tokens) through the kernels and
-    the graphed decode, count the launches (a replay adds the launches its
-    graph holds) and the decode captures (one per request shape).
+    the graphed prefill and decode, count the launches (a replay adds the
+    launches its graph holds) and the captures (one prefill and one decode
+    graph per request shape); each request served again, through the
+    graphs' replays, gives the same tokens.
     ``want_params``: (param_count(), the parameter tensors' numel);
     ``want_launches``: {kernel: launches over all the requests}. The
     model's ``max_seq`` (whisper's decoder positions) is the longest
@@ -711,7 +721,7 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
     counters = serving_launches()
     for fn in counters.values():
         fn.launches = 0
-    captures0 = TRACE_COUNT["decode"]
+    captures0 = dict(TRACE_COUNT)
     served = []
     t0 = time.perf_counter()
     for b, p, g in requests:
@@ -720,17 +730,24 @@ def serve_path(dev, cfg, requests, want_params, want_launches):
                      report=report)
         served.append({"batch": b, "prompt": p, "gen": g, **report,
                        "tokens_ok": bool(seqs.shape == (b, g) and seqs.min() >= 0
-                                         and seqs.max() < cfg.vocab)})
+                                         and seqs.max() < cfg.vocab), "_tokens": seqs})
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
-    captures = TRACE_COUNT["decode"] - captures0
-    shapes = len({(b, p + g) for b, p, g in requests})
+    captures = {k: TRACE_COUNT[k] - captures0[k] for k in captures0}
+    shapes = len({(b, p, p + g) for b, p, g in requests})
+    # the first request of a shape ran the warm-ups the captures follow; a
+    # second one replays the graphs: the same tokens
+    for r in served:
+        again = serve(cfg.name, r["batch"], r["prompt"], r["gen"], smoke=False, seed=0,
+                      device=dev, params=params)
+        r["replayed_tokens_equal"] = bool(torch.equal(r.pop("_tokens"), again))
     ok = (launches == want_launches and all(r["tokens_ok"] for r in served)
-          and captures == shapes)
+          and captures == {"prefill": shapes, "decode": shapes}
+          and all(r["replayed_tokens_equal"] for r in served))
     emit({"phase": "serve_path", "arch": cfg.name, "seconds": seconds, "requests": served,
           "launches": launches, "expected_launches": want_launches,
-          "decode_captures": captures, "request_shapes": shapes,
+          "captures": captures, "request_shapes": shapes,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9, "ok": ok})
     if not ok:
         raise AssertionError(f"{cfg.name} serve path check failed")
@@ -932,7 +949,8 @@ def flash_cells(cfg, params, dev, requests, extra=None):
 
 def one_call(fn) -> dict:
     """Where one call of ``fn`` spends its time: the host clock of a warmed
-    call ending in a synchronize, then the card's busy time, idle share and
+    call ending in a synchronize, then the card's busy time, idle share,
+    device ops (rows with device time: a launch call's row has none) and
     largest kernels from a traced call."""
     fn()
     torch.cuda.synchronize()
@@ -945,7 +963,7 @@ def one_call(fn) -> dict:
     seen = busy_s > 0  # else the profiler saw no device activity: not measured
     return {"host_s": host_s, "device_busy_s": busy_s if seen else None,
             "idle_share": 1.0 - busy_s / host_s if seen else None,
-            "device_kernels": sum(c for _, c in rows.values()),
+            "device_kernels": sum(c for t, c in rows.values() if t > 0),
             "top_device_ops": sorted(([k[:80], t / 1e6, c] for k, (t, c) in rows.items()),
                                      key=lambda x: -x[1])[:8]}
 
@@ -1720,6 +1738,63 @@ def serve_step_graphs(cfg, params, dev, request):
     return row
 
 
+def serve_prefill_graphs(cfg, params, dev, requests, eager, extra=None):
+    """The graphed prefill (``_step_fns`` on a card, one graph per request
+    shape captured by serve_path) against the eager prefill on new inputs
+    of the first request's shape (seeded tokens, and ``extra(b)``'s random
+    stand-ins with the vlm cross gates at ZOO_GATE): the logits and every
+    cache leaf bitwise, counted with the largest difference; two requests
+    through the graph equal and adding no capture. Prints each capture of
+    the path (recording and instantiation seconds, the private pool's
+    bytes, the launches a replay adds) and the warm graphed prefill's host
+    clock, busy time and idle share (:func:`one_call`) beside ``eager``,
+    :func:`serve_trace`'s reading of the eager prefill at the same shape in
+    this process."""
+    from repro_torch.launch import serve as S
+    from repro_torch.models import api
+
+    b, p, g = requests[0]
+    inputs = S._pre_batch(cfg, _tokens(cfg, b, p, dev, 61))
+    if extra is not None:
+        inputs.update(extra(b))
+    prefill = S._step_fns(cfg.name, False, b, p + g, dev, donate=True)[0]
+    with cross_gates(params, ZOO_GATE if extra else None):
+        trace0 = dict(S.TRACE_COUNT)
+        first, second = (prefill(params, inputs) for _ in range(2))
+        captures = {k: S.TRACE_COUNT[k] - trace0[k] for k in trace0}
+        want = api.prefill(cfg, params, inputs, p + g)
+        torch.cuda.synchronize()
+    pairs = [(first[0], want[0])] + list(zip(S._leaves(first[1]), S._leaves(want[1])))
+    n_equal = sum(bool(torch.equal(a, w)) for a, w in pairs)
+    diff = max(float((a.float() - w.float()).abs().max()) for a, w in pairs)
+    repeat = all(bool(torch.equal(a, c)) for a, c in zip(
+        [first[0], *S._leaves(first[1])], [second[0], *S._leaves(second[1])]))
+    del first, second, want
+    graphs = []
+    for rb, rp, rg in requests:
+        for key, cap in S._step_fns(cfg.name, False, rb, rp + rg, dev,
+                                    donate=True)[0].graphs(params).items():
+            graphs.append({"inputs": {k: list(shape) for k, shape, _ in key}, **cap.stats,
+                           "launches_a_replay": {fn.__name__: n for fn, n in cap.launches}})
+    shapes = len({(rb, rp, rp + rg) for rb, rp, rg in requests})
+    row = {"phase": "serve_prefill_graphs", "arch": cfg.name,
+           "request": {"batch": b, "prompt": p, "gen": g},
+           "inputs": "seeded tokens" + (", random stand-ins, cross gates 0.5"
+                                         if extra is not None else ""),
+           "leaves": len(pairs), "bitwise_equal_leaves": n_equal, "max_abs_diff": diff,
+           "second_request_equal": repeat, "captures_over_both_requests": captures,
+           "captures_over_the_path": len(graphs), "request_shapes": shapes,
+           "graphs": graphs,
+           "graphed": one_call(lambda: prefill(params, inputs)),
+           "eager": {k: v for k, v in eager.items() if k != "top_device_ops"}}
+    emit(row)
+    ok = (n_equal == len(pairs) and repeat and not any(captures.values())
+          and len(graphs) == shapes)
+    if not ok:
+        raise AssertionError(f"{cfg.name}: graphed prefill check failed")
+    return row
+
+
 def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     """The planned path at full width on ``table`` (built on the sweep
     kernel by the plan_table phase): warmed once, then one request under a
@@ -1790,8 +1865,9 @@ def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     store_s = time.perf_counter() - t0
     cache_bytes = sum(t.numel() * t.element_size() for t in S._leaves(state["cache"]))
     cap = S._step_fns(cfg.name, False, b, p + g, dev, donate=False)[1]._graphs[params]
-    feed_ms = cuda_ms(lambda: cap.feed(state["cache"], state["tok"], p), 5)
-    clone_ms = cuda_ms(lambda: S._map(torch.clone, cap.cache), 5)
+    feed_ms = cuda_ms(lambda: cap.feed({"cache": state["cache"], "tok": state["tok"],
+                                        "pos": p}), 5)
+    clone_ms = cuda_ms(lambda: S._map(torch.clone, cap.inputs["cache"]), 5)
     del state
     row = {"phase": "serve_planned", "arch": cfg.name,
            "request": {"batch": b, "prompt": p, "gen": g}, "budget": budget,
@@ -2875,9 +2951,10 @@ def zamba_recurrence(cfg, params, dev, requests) -> dict:
     with Mamba2's published decays (:func:`mamba2_decays`) so that state
     crosses chunks. For each request (b, p): a prefill of p − 128 tokens,
     then the last 128 prompt tokens teacher-forced through the graphed
-    decode (``_step_fns``: no new capture), against one prefill of all p
-    tokens: every layer's float32 ``ssm`` state read as :func:`_state_rel`,
-    the last logits per row as ‖Δ‖₂/‖·‖₂, each within twice the reading of
+    decode (``_step_fns``: one new capture, the prefill of p − 128 tokens),
+    against one prefill of all p tokens (the graph serve_path captured):
+    every layer's float32 ``ssm`` state read as :func:`_state_rel`, the
+    last logits per row as ‖Δ‖₂/‖·‖₂, each within twice the reading of
     a rounding reference: the one prefill with every Mamba2 input and output
     and every attention output one bf16 step off at every element of the
     last 128 positions, where the two forms differ
@@ -2905,7 +2982,7 @@ def zamba_recurrence(cfg, params, dev, requests) -> dict:
         for b, p, g in requests:
             tokens = _tokens(cfg, b, p, dev, 41 + b)
             prefill, decode = S._step_fns(cfg.name, False, b, p + g, dev, donate=True)
-            captures0 = S.TRACE_COUNT["decode"]
+            captures0 = dict(S.TRACE_COUNT)
             whole_logits, whole = prefill(params, {"tokens": tokens})
             s_whole = states(whole)
             del whole
@@ -2929,7 +3006,8 @@ def zamba_recurrence(cfg, params, dev, requests) -> dict:
                         "state_limit_by_layer": limit.tolist(),
                         "logits_row_rel_max": float(_row_rel(logits, whole_logits).max()),
                         "logits_limit": 2 * float(_row_rel(ref_logits, whole_logits).max()),
-                        "new_captures": S.TRACE_COUNT["decode"] - captures0})
+                        "new_captures": {k: S.TRACE_COUNT[k] - captures0[k]
+                                         for k in captures0}})
         layers = mamba2_layer_checks(cfg, params, dev, requests[0], gen)
     torch.cuda.synchronize()
     row = {"phase": "zamba_chunked_prefill_vs_recurrence", "arch": cfg.name, "requests": out,
@@ -2944,7 +3022,7 @@ def zamba_recurrence(cfg, params, dev, requests) -> dict:
     emit(row)
     for r in out:
         if (r["state_largest_share_of_limit"] > 1.0 or r["logits_row_rel_max"] > r["logits_limit"]
-                or r["new_captures"]):
+                or r["new_captures"] != {"prefill": 1, "decode": 0}):
             raise AssertionError(f"{cfg.name}: chunked prefill off its recurrence: {r}")
     if layers["state_largest_share_of_limit"] > 1.0:
         raise AssertionError(f"{cfg.name}: a Mamba2 block's chunked pass off its recurrence")
@@ -3013,6 +3091,7 @@ def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
     parity = zoo_parity(cfg, params, dev, requests, extra)
     graphs = serve_step_graphs(cfg, params, dev, requests[0])
     trace = serve_trace(cfg, params, dev, requests[0])
+    pre_graphs = serve_prefill_graphs(cfg, params, dev, requests, trace, extra)
     b, p, g = requests[0]
     warm = {}
     S.serve(cfg.name, b, p, g, smoke=False, seed=0, device=dev, params=params, report=warm)
@@ -3028,6 +3107,8 @@ def zoo_model(arch, layers, requests, dev, workdir: Path) -> tuple:
           "weights_gib": sum(t.numel() * t.element_size() for t in params.parameters()) / 2 ** 30,
           "prefill_ms": warm["prefill_ms"], "decode_ms_per_token": warm["decode_ms_per_token"],
           "prefill_device_busy_s": trace["device_busy_s"], "prefill_idle_share": trace["idle_share"],
+          "graphed_prefill_host_s": pre_graphs["graphed"]["host_s"],
+          "graphed_prefill_idle_share": pre_graphs["graphed"]["idle_share"],
           "graph_decode_bitwise_steps": [graphs["bitwise_equal_steps"], graphs["steps"]],
           "flash_cells": sum(r["cells"] for r in cells),
           "flash_cells_by_kind": [r["cells_by_kind"] for r in cells],
@@ -3078,6 +3159,8 @@ def zoo_path(dev, workdir: Path) -> tuple:
 
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_RUN = (50, 8, 128, 20)          # repro's CLI defaults: steps, batch, seq, burst steps
+TRAIN_DEPTH = 11                      # of tinyllama's 22 layers in that run: its commits
+                                      # (3 of 13.2 GB at 22) set the phase's time
 TRAIN_SMOKE_BATCH = (2, 16)
 TRAIN_WIDE = (2, 2, 128)              # layers of tinyllama at full width, batch, seq
 TRAIN_XLSTM = ("xlstm-1.3b", 3, 8, 128)
@@ -3369,6 +3452,7 @@ def train_path(dev, workdir: Path) -> tuple:
     sweep launches)."""
     from repro_torch.checkpoint.burst_ckpt import plan_burst_schedule
     from repro_torch.configs import SMOKE_CONFIGS, get_config
+    from repro_torch.configs.base import register
     from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
     from repro_torch.launch import train as T
     from repro_torch.models import api
@@ -3433,8 +3517,10 @@ def train_path(dev, workdir: Path) -> tuple:
     # crash and resume through the CLI (run beside the checks above)
     emit({"phase": "train_resume_cli", **resumed()})
 
-    # tinyllama at full width and depth through train(), repro's defaults
+    # tinyllama at full width and TRAIN_DEPTH layers through train(), repro's defaults
     steps, b, seq, burst = TRAIN_RUN
+    run_arch = register(dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_DEPTH,
+                                            name=f"{TRAIN_ARCH}-{TRAIN_DEPTH}-layers")).name
     free = shutil.disk_usage(workdir).free
     if free < TRAIN_DISK_BYTES:
         raise AssertionError(f"train: {free / 1e9:.1f} GB free under {workdir}, "
@@ -3442,7 +3528,7 @@ def train_path(dev, workdir: Path) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     report = {}
     t0 = time.perf_counter()
-    losses = T.train(TRAIN_ARCH, steps, b, seq, burst, str(workdir / "tinyllama"),
+    losses = T.train(run_arch, steps, b, seq, burst, str(workdir / "tinyllama"),
                      smoke=False, device=dev, report=report)
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -3452,7 +3538,8 @@ def train_path(dev, workdir: Path) -> tuple:
     shutil.rmtree(workdir, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    row = {"phase": "train_full", "arch": TRAIN_ARCH, "steps": steps, "batch": [b, seq],
+    row = {"phase": "train_full", "arch": run_arch, "reduced": f"n_layers 22→{TRAIN_DEPTH}",
+           "steps": steps, "batch": [b, seq],
            "burst_steps": burst, "seconds": run_s, "first_loss": losses[0],
            "last_loss": losses[-1], "losses": losses,
            "first_step_s": report["step_seconds"][0], "warm_step_ms_median": step_s * 1e3,
@@ -4017,7 +4104,7 @@ def main() -> int:
     params, serve_launches = serve_path(dev, cfg, SERVE_REQUESTS, *qwen_expected(cfg))
     flash_cells(cfg, params, dev, SERVE_REQUESTS)
     serve_parity(cfg, params, dev)
-    serve_trace(cfg, params, dev)
+    serve_prefill_graphs(cfg, params, dev, SERVE_REQUESTS, serve_trace(cfg, params, dev))
     serve_step_graphs(cfg, params, dev, SERVE_REQUESTS[0])
     time_tables = {t["arch"]: t["table"] for t in built if t["kind"] == "time"}
     launches_by_path = {SERVE_ARCH: serve_launches}
@@ -4045,7 +4132,8 @@ def main() -> int:
     xlstm_layer_checks(xcfg, xparams, dev)
     xlstm_f32_parity(xcfg, xparams, dev)
     xlstm_bf16_parity(xcfg, xparams, dev)
-    serve_trace(xcfg, xparams, dev, XLSTM_REQUESTS[0])
+    serve_prefill_graphs(xcfg, xparams, dev, XLSTM_REQUESTS,
+                         serve_trace(xcfg, xparams, dev, XLSTM_REQUESTS[0]))
     serve_step_graphs(xcfg, xparams, dev, XLSTM_REQUESTS[0])
     launches_by_path[XLSTM_ARCH] = xlstm_launches
     launches_by_path[f"{XLSTM_ARCH} planned"] = serve_planned(

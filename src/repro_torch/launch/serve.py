@@ -30,15 +30,23 @@ default table serves under this CLI's default.
 
 **Step functions.** ``repro`` jits prefill and decode once per shape
 (``_step_fns``). Here :func:`_step_fns` caches, per (arch, smoke, batch,
-max_seq, device, donate), an eager prefill and a decode that on a card is
-one CUDA graph replay: captured once per parameters object after one eager
-step on a side stream, its cache, token and 0-d position tensor static
-inputs that each call copies into. On the CPU both are the eager
-functions. ``TRACE_COUNT`` counts builds and captures, never calls, as
-``repro``'s counts retraces. ``repro``'s ``launch/steps.py`` and the TPU
-mesh layouts of ``launch/mesh.py`` have no counterpart on one card: their
-sharding constraints are TPU mesh rules (the port's ``launch/mesh.py``
-keeps only the DSE's Q-shard devices).
+max_seq, device, donate), a prefill and a decode that on a card are each
+one CUDA graph replay. A decode graph is captured once per parameters
+object, a prefill graph once per parameters object and input shapes
+(tokens [B, S] and the vlm's or encdec's stand-in), so one entry may hold
+several prefill graphs. Each capture follows one eager step on a side
+stream, whose result the call returns; later calls copy their inputs into
+the graph's static inputs (the cache, token and 0-d position of a decode)
+and replay it. A prefill hands back clones of its logits and cache, a
+decode a clone of its logits and the graph's own cache (a clone of it
+unless ``donate``). On the CPU both are the eager functions.
+``TRACE_COUNT`` counts, never calls: on the CPU builds of the step
+functions, on a card captures of their graphs (one per model and
+input shape, as ``repro`` counts a trace per shape). ``repro``'s
+``launch/steps.py`` and the TPU mesh layouts of ``launch/mesh.py`` have no
+counterpart on one card: their sharding constraints are TPU mesh rules
+(the port's ``launch/mesh.py`` keeps only the DSE's Q-shard devices; its
+``launch/steps.py`` builds the dry run's cells, which run eagerly).
 
 **Planned path.** With ``--plan-table`` the request is energy-bounded: its
 shape is bucketed into a :class:`repro_torch.core.plan_table.PlanTable` (an
@@ -83,9 +91,10 @@ from .traffic import Continuation, Request
 __all__ = ["serve", "main", "PlannedExecutor", "TRACE_COUNT", "reset_trace_counts",
            "calibration_probe"]
 
-# Builds of the step functions and captures of the decode graph (never
-# calls): the serving tests pin these at zero across repeated planned and
-# unplanned requests of one shape. Registry-backed, a dict to callers.
+# Builds of the step functions on the CPU, captures of their graphs on a
+# card (never calls): the serving tests pin these at zero across repeated
+# planned and unplanned requests of one shape. Registry-backed, a dict to
+# callers.
 TRACE_COUNT = METRICS.counter_dict("serve.trace_count", ("prefill", "decode"))
 
 
@@ -139,96 +148,180 @@ def _check_prompt_len(cfg, prompt_len: int) -> None:
                          f"a multiple of {PROMPT_CHUNK}")
 
 
-class _Captured:
-    """One decode graph: its static inputs (cache, token, position), its
-    output logits, and the kernel launches one replay makes."""
-
-    def __init__(self, cache, tok, dev):
-        self.cache = _map(torch.empty_like, cache)
-        self.tok = torch.empty_like(tok)
-        self.pos = torch.zeros((), dtype=torch.int64, device=dev)
-        self.graph = None
-        self.logits = None
-        self.launches = ()
-
-    def feed(self, cache, tok, pos) -> None:
-        """Copy a call's inputs into the static ones; a cache that is the
-        static one already (the unplanned path hands it back) is not
-        copied."""
-        if tok.shape != self.tok.shape:
-            raise ValueError(f"token shape {tuple(tok.shape)}, graph has "
-                             f"{tuple(self.tok.shape)}")
-        for dst, src in zip(_leaves(self.cache), _leaves(cache)):
-            if src is not dst:
-                if src.shape != dst.shape:
-                    raise ValueError(f"cache leaf {tuple(src.shape)}, graph has "
-                                     f"{tuple(dst.shape)}")
-                dst.copy_(src)
-        self.tok.copy_(tok)
-        if isinstance(pos, torch.Tensor):
-            self.pos.copy_(pos)
+def _feed(static, given, where: str = "input") -> None:
+    """Copy ``given`` into the static tensors ``static`` leaf by leaf
+    (nested dicts of one layout). A leaf that is its static tensor already
+    is not copied, a number fills a 0-d leaf, a None stays None, and a
+    tensor of another shape raises ValueError."""
+    if isinstance(static, Mapping):
+        for k, v in static.items():
+            _feed(v, given[k], f"{where}.{k}")
+    elif static is None:
+        if given is not None:
+            raise ValueError(f"{where}: the graph has None here")
+    elif given is not static:
+        if not isinstance(given, torch.Tensor):
+            static.fill_(given)
+        elif given.shape != static.shape:
+            raise ValueError(f"{where} {tuple(given.shape)}, graph has {tuple(static.shape)}")
         else:
-            self.pos.fill_(int(pos))
+            static.copy_(given)
+
+
+class _Captured:
+    """One captured step: its static inputs (a nested dict of tensors that
+    each call's inputs are copied into), the outputs its capture left (a
+    nested dict that each replay overwrites), the graph's ``replay``, the
+    kernel launches one replay makes, and what the capture cost
+    (``stats``). Nothing here needs a card: the CPU tests give it an eager
+    ``replay``."""
+
+    def __init__(self, inputs):
+        self.inputs = _map(torch.empty_like, inputs)
+        self.outputs = None
+        self.replay = None
+        self.launches = ()
+        self.stats: Dict[str, float] = {}
+
+    def feed(self, inputs) -> None:
+        _feed(self.inputs, inputs)
+
+    def __call__(self, inputs):
+        """Copy ``inputs`` in, replay, add the launches the graph holds to
+        the kernels' counts; returns a clone of every output, since a later
+        replay overwrites the graph's own."""
+        self.feed(inputs)
+        self.replay()
+        for fn, n in self.launches:
+            fn.launches += n
+        return _map(torch.clone, self.outputs)
+
+
+def _capture(step, inputs, dev: torch.device, like=None):
+    """``step(static inputs) -> outputs`` (a nested dict of tensors) as a
+    CUDA graph → (the :class:`_Captured`, the warm-up's outputs, which are
+    this call's result). The static inputs are made like ``like`` (default
+    ``inputs``: ``like`` gives a 0-d tensor where ``inputs`` holds a
+    number) and fed ``inputs``; :func:`_record` captures."""
+    cap = _Captured(inputs if like is None else like)
+    cap.feed(inputs)
+    return cap, _record(step, cap, dev)
+
+
+def _record(step, cap: _Captured, dev: torch.device):
+    """The warm-up, the eager step on a side stream that PyTorch's capture
+    needs, on ``cap``'s static inputs: it makes the request's real launches
+    and result (and every kernel's one-time shared-memory opt-in), which it
+    returns. Then the capture of ``step`` into ``cap``'s graph; it launches
+    nothing, so the kernels' launch counts are set back after it.
+    ``cap.stats``: the seconds spent recording (``capture_s``) and ending
+    the capture with the graph's instantiation (``instantiate_s``), and the
+    bytes the allocator reserved for the graph's private pool
+    (``pool_bytes``). A failure raises: nothing drops to eager."""
+    from ..kernels import launch_counters
+    from ..kernels._build import load_library
+
+    load_library()  # no build or load under capture
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = step(cap.inputs)
+    main.wait_stream(side)
+    for t in _leaves(out):
+        t.record_stream(main)
+
+    counters = launch_counters()
+    before = [fn.launches for fn in counters]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):  # synchronizes and empties the cache first
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            cap.outputs = step(cap.inputs)
+            t1 = time.perf_counter()
+        cap.stats = {"capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
+                     "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+        cap.launches = tuple((fn, fn.launches - n) for fn, n in zip(counters, before)
+                             if fn.launches != n)
+    finally:
+        for fn, n in zip(counters, before):
+            fn.launches = n
+    cap.replay = graph.replay
+    return out
 
 
 class _GraphedDecode:
     """Decode on a card: a CUDA graph per parameters object (the graph holds
-    the weights' addresses; it goes when the model does).
-
-    The first call of a model runs the step eagerly on a side stream, the
-    warm-up PyTorch's graph capture needs, and returns its result: those
-    are real launches of the request. It then captures the step into the
-    graph; a capture launches nothing, so the kernels' launch counts are
-    set back, and each replay adds the launches the graph holds. A capture
-    or replay that fails raises: nothing drops to eager.
-    """
+    the weights' addresses; it goes when the model does), its static
+    inputs the cache, the token and a 0-d position. The first call of a
+    model captures (:func:`_capture`) and returns the warm-up's result."""
 
     def __init__(self, cfg, dev: torch.device, donate: bool):
         self.cfg, self.dev, self.donate = cfg, dev, donate
         self._graphs: "weakref.WeakKeyDictionary[Any, _Captured]" = weakref.WeakKeyDictionary()
 
     def __call__(self, params, cache, tok, pos):
+        inputs = {"cache": cache, "tok": tok, "pos": pos}
         cap = self._graphs.get(params)
         if cap is None:
-            cap, logits = self._capture(params, cache, tok, pos)
+            cfg = self.cfg
+
+            def step(s):
+                return {"logits": api.decode_step(cfg, params, s["cache"], s["tok"],
+                                                  s["pos"])[0]}
+
+            pos0 = torch.zeros((), dtype=torch.int64, device=self.dev)
+            cap, out = _capture(step, inputs, self.dev, like={**inputs, "pos": pos0})
             self._graphs[params] = cap
+            TRACE_COUNT["decode"] += 1
+            logits = out["logits"]
         else:
-            cap.feed(cache, tok, pos)
-            cap.graph.replay()
-            for fn, n in cap.launches:
-                fn.launches += n
-            logits = cap.logits.clone()
-        return logits, (cap.cache if self.donate else _map(torch.clone, cap.cache))
+            logits = cap(inputs)["logits"]
+        cache = cap.inputs["cache"]
+        return logits, (cache if self.donate else _map(torch.clone, cache))
 
-    def _capture(self, params, cache, tok, pos):
-        from ..kernels import launch_counters
-        from ..kernels._build import load_library
 
-        load_library()  # no build or load under capture
-        cap = _Captured(cache, tok, self.dev)
-        cap.feed(cache, tok, pos)
-        main = torch.cuda.current_stream(self.dev)
-        side = torch.cuda.Stream(self.dev)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            logits, _ = api.decode_step(self.cfg, params, cap.cache, cap.tok, cap.pos)
-        main.wait_stream(side)
-        logits.record_stream(main)
+def _input_key(inputs) -> tuple:
+    """A prefill graph's key: each input's name, shape and dtype."""
+    return tuple((k, tuple(t.shape), t.dtype) for k, t in sorted(inputs.items()))
 
-        counters = launch_counters()
-        before = [fn.launches for fn in counters]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                cap.logits, _ = api.decode_step(self.cfg, params, cap.cache, cap.tok, cap.pos)
-            cap.launches = tuple((fn, fn.launches - n) for fn, n in zip(counters, before)
-                                 if fn.launches != n)
-        finally:
-            for fn, n in zip(counters, before):
-                fn.launches = n
-        cap.graph = graph
-        TRACE_COUNT["decode"] += 1
-        return cap, logits
+
+class _GraphedPrefill:
+    """Prefill on a card: a CUDA graph per parameters object and input
+    shapes (``tokens`` [B, S] and the vlm's or encdec's stand-in), kept in
+    a ``WeakKeyDictionary`` on the parameters object so that the graphs go
+    when the model does. A shape's first call captures (:func:`_capture`)
+    and returns the warm-up's result; later calls copy their inputs into
+    the graph's and replay it, and each hands back clones of the logits and
+    of every cache leaf (a None leaf stays None). ``graphs(params)``: {input
+    key: :class:`_Captured`} of a model, for the captures' stats."""
+
+    def __init__(self, cfg, dev: torch.device, max_seq: int):
+        self.cfg, self.dev, self.max_seq = cfg, dev, max_seq
+        self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, _Captured]]" = (
+            weakref.WeakKeyDictionary())
+
+    def graphs(self, params) -> Dict[tuple, _Captured]:
+        return self._graphs.setdefault(params, {})
+
+    def __call__(self, params, inputs):
+        graphs = self.graphs(params)
+        key = _input_key(inputs)
+        cap = graphs.get(key)
+        if cap is None:
+            cfg, max_seq = self.cfg, self.max_seq
+
+            def step(s):
+                logits, cache = api.prefill(cfg, params, s, max_seq)
+                return {"logits": logits, "cache": cache}
+
+            cap, out = _capture(step, inputs, self.dev)
+            graphs[key] = cap
+            TRACE_COUNT["prefill"] += 1
+        else:
+            out = cap(inputs)
+        return out["logits"], out["cache"]
 
 
 def _eager_decode(cfg, donate: bool, params, cache, tok, pos):
@@ -244,8 +337,9 @@ def _step_fns(arch: str, smoke: bool, batch: int, max_seq: int, device: torch.de
     batch, max_seq, device, donate).
 
     ``prefill(params, _pre_batch(cfg, tokens [batch, S]))`` and
-    ``decode(params, cache, tok [batch, 1], pos)`` return (logits, cache). On a card decode replays
-    a CUDA graph (:class:`_GraphedDecode`); on the CPU both run eagerly.
+    ``decode(params, cache, tok [batch, 1], pos)`` return (logits, cache).
+    On a card each replays a CUDA graph (:class:`_GraphedPrefill`,
+    :class:`_GraphedDecode`); on the CPU both run eagerly.
     ``donate=True`` (the unplanned path) hands back the cache decode wrote
     in place (the graph's own static cache on a card), the counterpart of
     ``repro``'s cache donation; ``donate=False`` (the planned path) leaves
@@ -254,13 +348,13 @@ def _step_fns(arch: str, smoke: bool, batch: int, max_seq: int, device: torch.de
     ``lru_cache`` keys positional and keyword calls apart.
     """
     cfg = resolve_config(arch, smoke=smoke)
+    if device.type == "cuda":
+        return _GraphedPrefill(cfg, device, max_seq), _GraphedDecode(cfg, device, donate)
 
     def prefill(params, inputs):
         return api.prefill(cfg, params, inputs, max_seq)
 
     TRACE_COUNT["prefill"] += 1
-    if device.type == "cuda":
-        return prefill, _GraphedDecode(cfg, device, donate)
     TRACE_COUNT["decode"] += 1
     return prefill, functools.partial(_eager_decode, cfg, donate)
 
