@@ -120,14 +120,24 @@ version on the card, and drives the port's paths:
    the same code on the CPU within the rounding-derived tolerance of
    ``tests/test_torch_loss.py`` (labels shifted by one, the control, must
    exceed it); so does tinyllama-1.1b at full width with 2 of its 22
-   layers (b2 × 128); xlstm-1.3b at full width takes 3 steps (b8 × 128);
+   layers (b2 × 128); on a card each step of ``train`` is one CUDA graph replay, one capture
+   per (model, state, batch shape): ``train_graphs`` holds the graphed
+   step bitwise to the eager ``train_step`` over a warm-up and three
+   replays (losses, every master, m, v and the counter) for the ten smoke
+   configs and tinyllama-1.1b at full width (22 layers, b8 × 128), after
+   the eager step has repeated itself bitwise, and a control (the counter
+   frozen, as a graph that captured a rebound counter would leave it) must
+   differ; xlstm-1.3b at full width takes 4 graphed steps through ``train``
+   (b8 × 128, one capture, one commit);
    the train CLI crashes after burst 1 and resumes (qwen1.5-0.5b smoke, 6
-   steps, deterministic algorithms), its losses equal to an uninterrupted
-   run's within 1e-6; then ``train(smoke=False)`` trains tinyllama-1.1b at
-   full width and 11 of its 22 layers (the cut keeps the run's time) with
-   ``repro``'s CLI defaults (50 steps of b8 × 128, a checkpoint committed
-   every 20 steps under ``build/train``),
-   its loss must fall, a warm step is traced, and the checkpoint cadence
+   steps, deterministic algorithms, one capture a run), its losses equal to
+   an uninterrupted run's within 1e-6; then ``train(smoke=False)`` trains
+   tinyllama-1.1b at full width and 11 of its 22 layers (the cut keeps the
+   run's time) with ``repro``'s CLI defaults (50 steps of b8 × 128, a
+   checkpoint committed every 20 steps under ``build/train``), one capture,
+   its loss must fall; a warm step of tinyllama-1.1b (22 layers) and of
+   xlstm-1.3b is traced graphed and eager (host ms, busy ms, idle share,
+   the capture's seconds and pool bytes), and the checkpoint cadence
    is planned with the measured step time and state bytes on the numpy
    oracle and on the sweep kernel, with equal bursts;
 14. the activation solvers (``planners``): ``plan_offload`` at 2·Q_min,
@@ -3163,7 +3173,9 @@ TRAIN_DEPTH = 11                      # of tinyllama's 22 layers in that run: it
                                       # (3 of 13.2 GB at 22) set the phase's time
 TRAIN_SMOKE_BATCH = (2, 16)
 TRAIN_WIDE = (2, 2, 128)              # layers of tinyllama at full width, batch, seq
-TRAIN_XLSTM = ("xlstm-1.3b", 3, 8, 128)
+TRAIN_XLSTM = ("xlstm-1.3b", 4, 8, 128)   # arch, steps (one burst), batch, seq
+TRAIN_GRAPH_STEPS = 4                 # the graphed step's warm-up and three replays
+TRAIN_GRAPH_WIDE = (22, 8, 128)       # tinyllama-1.1b at full width: layers, batch, seq
 TRAIN_MAX_LOSS_S = 60.0
 TRAIN_DISK_BYTES = 40e9               # two kept checkpoints and a temporary file
 TRAIN_RESUME = ["--arch", "qwen1.5-0.5b", "--steps", "6", "--batch", "2", "--seq", "16",
@@ -3287,12 +3299,17 @@ def card_vs_cpu(cfg, model, batch, dev) -> dict:
     return row
 
 
-def step_breakdown(cfg, dev, batch, seq) -> dict:
-    """A warm training step of ``cfg`` at full width from a fresh model:
-    host time, the card's busy share and its largest kernels (traced), the
-    GEMMs' share of the busy time, and the loss-and-backward and the AdamW
-    update (with the cast into the module) timed apart."""
-    from repro_torch.launch.train import train_step
+def step_breakdown(cfg, dev, batch, seq, parts: bool = True) -> dict:
+    """A warm training step of ``cfg`` at full width from a fresh model,
+    graphed (``_GraphedTrainStep``) and eager (``train_step``) on the same
+    model and state, each call a real step: each path's host time, the
+    card's busy time and idle share, device ops and largest kernels
+    (:func:`one_call`); the graph's capture (recording and instantiation
+    seconds, pool bytes) and the host time of the shape's first call (the
+    eager warm-up and the capture). With ``parts``, the GEMMs' share of the
+    eager step's busy time, and its loss-and-backward and AdamW update
+    (with the cast into the module) timed apart."""
+    from repro_torch.launch import train as T
     from repro_torch.models import api
     from repro_torch.models.common import PLAIN
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -3301,29 +3318,136 @@ def step_breakdown(cfg, dev, batch, seq) -> dict:
     state = {"params": masters, "opt_state": adamw_init(masters)}
     adamw = AdamWConfig(lr=1e-3, warmup_steps=20)
     b = train_batch(cfg, batch, seq, dev)
-    row = one_call(lambda: train_step(cfg, model, state, adamw, b))
-    rows = profile_device(lambda: train_step(cfg, model, state, adamw, b))
-    gemm = sum(t for k, (t, _) in rows.items()
-               if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")))
-    busy = sum(t for t, _ in rows.values())
+    graphed = T._GraphedTrainStep(cfg, adamw, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed(model, state, b)
+    torch.cuda.synchronize()
+    row = {"first_call_s": time.perf_counter() - t0,
+           "capture": next(iter(graphed.graphs(model).values())).stats,
+           "graphed": one_call(lambda: graphed(model, state, b)),
+           "eager": one_call(lambda: T.train_step(cfg, model, state, adamw, b)),
+           "parameters": sum(p.numel() for p in model.parameters())}
+    if parts:
+        rows = profile_device(lambda: T.train_step(cfg, model, state, adamw, b))
+        gemm = sum(t for k, (t, _) in rows.items()
+                   if any(w in k.lower() for w in ("gemm", "nvjet", "cutlass", "xmma")))
+        busy = sum(t for t, _ in rows.values())
 
-    def fwd_bwd():
-        model.zero_grad(set_to_none=True)
-        api.loss(cfg, model, b, remat=True, kernels=PLAIN)[0].backward()
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            api.loss(cfg, model, b, remat=True, kernels=PLAIN)[0].backward()
 
-    fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
-    grads = {n: p.grad for n, p in model.named_parameters()}
+        fwd_bwd_ms = cuda_ms(fwd_bwd, 3)
+        grads = {n: p.grad for n, p in model.named_parameters()}
 
-    def update():
-        adamw_update(adamw, state["params"], grads, state["opt_state"])
-        api.load_masters(model, state["params"])
+        def update():
+            adamw_update(adamw, state["params"], grads, state["opt_state"])
+            api.load_masters(model, state["params"])
 
-    row.update(gemm_share_of_busy=gemm / busy if busy else None, fwd_bwd_ms=fwd_bwd_ms,
-               adamw_and_cast_ms=cuda_ms(update, 3),
-               parameters=sum(p.numel() for p in model.parameters()))
-    del model, masters, state, grads
+        row.update(gemm_share_of_busy=gemm / busy if busy else None, fwd_bwd_ms=fwd_bwd_ms,
+                   adamw_and_cast_ms=cuda_ms(update, 3))
+        del grads
+    del model, masters, state, graphed
     gc.collect()
     torch.cuda.empty_cache()
+    return row
+
+
+def state_leaves(state) -> dict:
+    """{name: tensor} of a train state: every master, m, v and the counter."""
+    out = {f"params.{k}": v for k, v in state["params"].items()}
+    for part in ("m", "v"):
+        out.update({f"{part}.{k}": v for k, v in state["opt_state"][part].items()})
+    out["step"] = state["opt_state"]["step"]
+    return out
+
+
+def run_steps(cfg, dev, seq, batches, how: str) -> tuple:
+    """A fresh model and state from seed 0, then one step per batch, ``how``:
+    "eager" (``train_step``), "graphed" (``_GraphedTrainStep``: the first
+    call its warm-up and capture, the others replays) or "frozen" (eager
+    steps with the counter set back after every step but the first, as a
+    graph that captured a rebound counter would leave it). Returns (state,
+    the losses as one tensor on the card, the capture's stats or None)."""
+    from repro_torch.launch import train as T
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    model, masters = api.init_trainable(cfg, 0, dev, max_seq=seq)
+    state = {"params": masters, "opt_state": adamw_init(masters)}
+    adamw = AdamWConfig(lr=1e-3, warmup_steps=20)
+    graphed = T._GraphedTrainStep(cfg, adamw, dev)
+    counter = state["opt_state"]["step"]
+    losses = []
+    for i, b in enumerate(batches):
+        if how == "graphed":
+            losses.append(graphed(model, state, b))
+            continue
+        before = counter.clone()
+        losses.append(T.train_step(cfg, model, state, adamw, b))
+        if how == "frozen" and i:
+            counter.copy_(before)
+    stats = ([cap.stats for cap in graphed.graphs(model).values()]
+             if how == "graphed" else None)
+    return state, torch.stack(losses), stats
+
+
+def train_graph_parity(cfg, dev, batch, seq) -> dict:
+    """The graphed step against the eager step from the same start over
+    TRAIN_GRAPH_STEPS seeded batches: an eager run, then a second eager run
+    (the eager step must repeat itself bitwise on the card), the graphed
+    run (losses and every master, m, v and the counter bitwise the first
+    run's; one capture) and the control, the frozen counter, which must
+    differ from it in the masters or moments. Returns the reading."""
+    batches = [train_batch(cfg, batch, seq, dev, index=i, seed=0)
+               for i in range(TRAIN_GRAPH_STEPS)]
+    want, want_losses, _ = run_steps(cfg, dev, seq, batches, "eager")
+    want_leaves = state_leaves(want)
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "batch": [batch, seq],
+           "leaves": len(want_leaves), "losses": want_losses.tolist()}
+    for how in ("eager", "graphed", "frozen"):
+        got, losses, stats = run_steps(cfg, dev, seq, batches, how)
+        diff = [k for k, t in state_leaves(got).items() if not torch.equal(t, want_leaves[k])]
+        row[how] = {"losses_equal": bool(torch.equal(losses, want_losses)),
+                    "differing_leaves": len(diff), "first_differing": diff[:4]}
+        if stats is not None:
+            row["captures"] = stats
+        del got, losses
+        gc.collect()
+        torch.cuda.empty_cache()
+    del want, want_leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["ok"] = (all(row[h]["losses_equal"] and not row[h]["differing_leaves"]
+                     for h in ("eager", "graphed"))
+                 and len(row["captures"]) == 1
+                 and any(k != "step" for k in row["frozen"]["first_differing"]))
+    return row
+
+
+def train_graphs(dev) -> dict:
+    """The ``train_graphs`` phase: :func:`train_graph_parity` for the ten
+    smoke configs (TRAIN_SMOKE_BATCH) and tinyllama-1.1b at full width
+    (TRAIN_GRAPH_WIDE). Raises on any row that fails."""
+    from repro_torch.configs import SMOKE_CONFIGS, get_config
+    from repro_torch.launch import train as T
+
+    t0 = time.perf_counter()
+    trace0 = T.TRACE_COUNT["step"]
+    rows = [train_graph_parity(cfg, dev, *TRAIN_SMOKE_BATCH) for cfg in SMOKE_CONFIGS.values()]
+    layers, b, seq = TRAIN_GRAPH_WIDE
+    wide = get_config(TRAIN_ARCH)
+    if layers != wide.n_layers:
+        wide = dataclasses.replace(wide, n_layers=layers)
+    rows.append(train_graph_parity(wide, dev, b, seq))
+    captures = T.TRACE_COUNT["step"] - trace0
+    row = {"phase": "train_graphs", "seconds": time.perf_counter() - t0,
+           "steps": TRAIN_GRAPH_STEPS, "captures": captures, "rows": rows}
+    emit(row)
+    if not all(r["ok"] for r in rows) or captures != len(rows):
+        raise AssertionError("train: the graphed step is not the eager step: "
+                             + json.dumps([r for r in rows if not r["ok"]]))
     return row
 
 
@@ -3384,7 +3508,11 @@ def resume_via_cli(workdir: Path) -> dict:
             "torch.use_deterministic_algorithms(True)\n"
             "from repro_torch.launch import train as T\n"
             "run = T.train\n"
-            "T.train = lambda *a, **k: print('LOSSES', json.dumps(run(*a, **k)), flush=True)\n"
+            "def train(*a, **k):\n"
+            "    n = T.TRACE_COUNT['step']\n"
+            "    print('LOSSES', json.dumps(run(*a, **k)), flush=True)\n"
+            "    print('CAPTURES', T.TRACE_COUNT['step'] - n, flush=True)\n"
+            "T.train = train\n"
             "argv = sys.argv[1:]\n"
             "if '--whole' in argv:\n"
             "    argv.remove('--whole')\n"
@@ -3399,26 +3527,37 @@ def resume_via_cli(workdir: Path) -> dict:
                              env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
         losses = [json.loads(line.split(" ", 1)[1]) for line in out.stdout.splitlines()
                   if line.startswith("LOSSES ")]
-        return out, losses
+        captures = [int(line.split()[1]) for line in out.stdout.splitlines()
+                    if line.startswith("CAPTURES ")]
+        return out, losses, captures
 
     t0 = time.perf_counter()
-    crashed, none = cli("--crash-after-burst", "1")
-    resumed, runs = cli("--whole")
+    crashed, none, _ = cli("--crash-after-burst", "1")
+    resumed, runs, captures = cli("--whole")
     want, got = (runs + [None, None])[:2]
     diff = (max(abs(a - b) / abs(b) for a, b in zip(got, want[2:]))
             if got and want and len(got) == 4 and len(want) == 6 else None)
     row = {"uninterrupted": want, "resumed": got, "largest_relative_difference": diff,
            "crash_exit_code": crashed.returncode, "seconds": time.perf_counter() - t0,
-           "deterministic_algorithms": True}
+           "deterministic_algorithms": True, "captures_per_run": captures}
     ok = (crashed.returncode == 1 and not none and resumed.returncode == 0
           and "[train] burst 1/3 committed" in crashed.stdout
           and "[train] injected crash!" in crashed.stdout
           and "[train] resumed from burst 1 (step 2)" in resumed.stdout
-          and diff is not None and diff <= 1e-6)
+          and diff is not None and diff <= 1e-6 and captures == [1, 1])
     if not ok:
         raise AssertionError(f"train CLI resume: {row}\n{crashed.stderr[-2000:]}\n"
                              f"{resumed.stderr[-2000:]}")
     return row
+
+
+def disk_free(workdir: Path) -> int:
+    """Free bytes under ``workdir``; raises below TRAIN_DISK_BYTES."""
+    free = shutil.disk_usage(workdir).free
+    if free < TRAIN_DISK_BYTES:
+        raise AssertionError(f"train: {free / 1e9:.1f} GB free under {workdir}, "
+                             f"{TRAIN_DISK_BYTES / 1e9:.0f} GB needed")
+    return free
 
 
 def in_background(fn):
@@ -3445,9 +3584,10 @@ def in_background(fn):
 
 def train_path(dev, workdir: Path) -> tuple:
     """The training path on the card (module docstring, phase 13). The CLI's
-    crash and resume run in their own processes beside the checks that time
-    nothing (every family's gradients, full width at 2 layers, xlstm-1.3b's
-    steps); the timed tinyllama-1.1b run starts after they end. Returns
+    crash and resume run in their own processes beside the checks (every
+    family's gradients, full width at 2 layers, the graphed step against the
+    eager one, xlstm-1.3b's run); the timed tinyllama-1.1b run and the
+    traced steps start after they end. Returns
     ({"train": the model kernels' launches}, the burst-schedule solves'
     sweep launches)."""
     from repro_torch.checkpoint.burst_ckpt import plan_burst_schedule
@@ -3456,7 +3596,6 @@ def train_path(dev, workdir: Path) -> tuple:
     from repro_torch.kernels.partition_sweep.kernel import sweep_columns_cuda
     from repro_torch.launch import train as T
     from repro_torch.models import api
-    from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3491,28 +3630,30 @@ def train_path(dev, workdir: Path) -> tuple:
           "reduced": f"n_layers 22→{layers}", "batch": [b, seq],
           "seconds": time.perf_counter() - t0, **wide})
 
-    # xlstm-1.3b at full width: 3 steps through train_step, no commit
+    # the graphed step against the eager step, bitwise
+    train_graphs(dev)
+
+    # xlstm-1.3b at full width through the graphed train(): one capture, one commit
     arch, n, b, seq = TRAIN_XLSTM
-    xcfg = get_config(arch)
+    disk_free(workdir)
     torch.cuda.reset_peak_memory_stats()
-    model, masters = api.init_trainable(xcfg, 0, dev, max_seq=seq)
-    state = {"params": masters, "opt_state": adamw_init(masters)}
-    adamw = AdamWConfig(lr=1e-3, warmup_steps=20)
-    xl, xs = [], []
-    for i in range(n):
-        t0 = time.perf_counter()
-        xl.append(float(T.train_step(xcfg, model, state, adamw,
-                                     train_batch(xcfg, b, seq, dev, index=i, seed=0))))
-        xs.append(time.perf_counter() - t0)
+    report = {}
+    trace0 = T.TRACE_COUNT["step"]
+    t0 = time.perf_counter()
+    xl = T.train(arch, n, b, seq, n, str(workdir / "xlstm"), smoke=False, device=dev,
+                 report=report)
     row = {"phase": "train_xlstm", "arch": arch, "steps": n, "batch": [b, seq], "losses": xl,
-           "step_seconds": xs, "parameters": sum(p.numel() for p in model.parameters()),
+           "seconds": time.perf_counter() - t0, "step_seconds": report["step_seconds"],
+           "captures": report["captures"], "trace_count": T.TRACE_COUNT["step"] - trace0,
+           "commits": report["commits"],
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    del model, masters, state
+    shutil.rmtree(workdir / "xlstm", ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
     emit(row)
-    if not all(math.isfinite(x) for x in xl):
-        raise AssertionError(f"train: xlstm losses {xl}")
+    if not (len(xl) == n and all(math.isfinite(x) for x in xl) and row["trace_count"] == 1
+            and len(row["captures"]) == 1 and len(row["commits"]) == 1):
+        raise AssertionError(f"train: xlstm {row}")
 
     # crash and resume through the CLI (run beside the checks above)
     emit({"phase": "train_resume_cli", **resumed()})
@@ -3521,15 +3662,14 @@ def train_path(dev, workdir: Path) -> tuple:
     steps, b, seq, burst = TRAIN_RUN
     run_arch = register(dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_DEPTH,
                                             name=f"{TRAIN_ARCH}-{TRAIN_DEPTH}-layers")).name
-    free = shutil.disk_usage(workdir).free
-    if free < TRAIN_DISK_BYTES:
-        raise AssertionError(f"train: {free / 1e9:.1f} GB free under {workdir}, "
-                             f"{TRAIN_DISK_BYTES / 1e9:.0f} GB needed")
+    free = disk_free(workdir)
     torch.cuda.reset_peak_memory_stats()
     report = {}
+    trace0 = T.TRACE_COUNT["step"]
     t0 = time.perf_counter()
     losses = T.train(run_arch, steps, b, seq, burst, str(workdir / "tinyllama"),
                      smoke=False, device=dev, report=report)
+    captures = T.TRACE_COUNT["step"] - trace0
     run_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     warm = sorted(report["step_seconds"][3:])
@@ -3544,16 +3684,21 @@ def train_path(dev, workdir: Path) -> tuple:
            "last_loss": losses[-1], "losses": losses,
            "first_step_s": report["step_seconds"][0], "warm_step_ms_median": step_s * 1e3,
            "max_memory_allocated_gib": peak / 2 ** 30, "commits": report["commits"],
+           "captures": report["captures"], "trace_count": captures,
            "disk_free_gb_before": free / 1e9}
     emit(row)
     if not (len(losses) == steps and all(math.isfinite(x) for x in losses)
-            and losses[-1] < losses[0] and len(report["commits"]) == 3):
+            and losses[-1] < losses[0] and len(report["commits"]) == 3
+            and captures == 1 and len(report["captures"]) == 1):
         raise AssertionError(f"train: {row}")
 
-    # where a warm step's time goes; what backward kernels could save
+    # where a warm step's time goes, graphed and eager; what backward kernels could save
     emit({"phase": "train_step_trace", "arch": TRAIN_ARCH, "batch": [b, seq],
           **step_breakdown(get_config(TRAIN_ARCH), dev, b, seq),
           "backward_candidates": backward_candidates(dev)})
+    arch, _, xb, xseq = TRAIN_XLSTM
+    emit({"phase": "train_step_trace", "arch": arch, "batch": [xb, xseq],
+          **step_breakdown(get_config(arch), dev, xb, xseq, parts=False)})
 
     # the checkpoint cadence priced with this run's step time and state bytes
     sweep_columns_cuda.launches = 0

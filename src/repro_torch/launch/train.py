@@ -17,6 +17,19 @@ module's bfloat16 and float32 weights after each update
 (``models/api.py``). vlm and encdec take ``repro``'s zero stand-ins for the
 vision tokens and audio frames.
 
+**The compiled step.** ``repro`` jits its step with the parameters and
+the optimizer state donated (``jax.jit(step_fn, donate_argnums=(0, 1))``).
+On a card :func:`train` runs each step as a replay of one CUDA graph per
+(model, train state, batch input shapes) (:class:`_GraphedTrainStep`): the
+graph's static inputs are the batch, and it updates the module's weights,
+the float32 masters, AdamW's moments and its step counter in place, so
+there is no copy and no second state, the counterpart of the donation. A
+shape's first step runs eagerly on a side stream, and is that step, before
+the capture; the capture itself runs nothing. On the CPU :func:`train`
+runs the eager :func:`train_step`. ``TRACE_COUNT["step"]`` counts captures
+on a card and builds of the eager step on the CPU, as the serve module's
+``TRACE_COUNT`` does.
+
 ``repro``'s ``--production-mesh`` and its ``steps.make_constrain`` lay the
 arrays out over a TPU pod's ("pod", "data", "model") mesh; on one card
 those sharding constraints are the identity, so neither is ported (the
@@ -36,7 +49,8 @@ import os
 import sys
 import tempfile
 import time
-from typing import Dict, Optional
+import weakref
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -47,9 +61,13 @@ from ..data.synthetic import SyntheticConfig, SyntheticData
 from ..device import resolve_device
 from ..models import api
 from ..models.common import PLAIN
+from ..obs.metrics import METRICS
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
+from . import serve
 
-__all__ = ["train", "train_step", "batch_tensors", "stand_ins", "main"]
+__all__ = ["train", "train_step", "batch_tensors", "stand_ins", "main", "TRACE_COUNT"]
+
+TRACE_COUNT = METRICS.counter_dict("train.trace_count", ("step",))
 
 
 def stand_ins(cfg, batch: int, device) -> Dict[str, torch.Tensor]:
@@ -88,6 +106,70 @@ def train_step(cfg, model, state, adamw: AdamWConfig,
     return loss.detach()
 
 
+class _GraphedTrainStep:
+    """:func:`train_step` on a card as one CUDA graph per (model, train
+    state, batch input shapes): ``step(model, state, batch)`` returns the
+    step's loss, a 0-d float32 tensor.
+
+    The graphs live in a ``WeakKeyDictionary`` on the model, keyed inside by
+    the state and :func:`serve._input_key` of the batch (int64 tokens and
+    labels [B, S], and the vlm's or encdec's zero stand-in). The batch is
+    the graph's static input. The graph closes over the module's
+    parameters and the tensors of ``state`` (the float32 masters, AdamW's m
+    and v and its 0-d step counter) and updates them in place, so they must
+    stay the same tensors: a call whose state holds other tensors than at
+    the capture raises. A shape's first call runs one real step on a side
+    stream (:func:`serve._capture`), whose loss it returns; then the
+    gradients go (``grad`` None), so the backward under capture allocates
+    them in the graph's private pool, and the capture runs nothing. Later
+    calls copy the batch in and replay; each returns a clone of the loss.
+    ``graphs(model)``: {key: :class:`serve._Captured`}, for the captures'
+    stats."""
+
+    def __init__(self, cfg, adamw: AdamWConfig, dev: torch.device):
+        self.cfg, self.adamw, self.dev = cfg, adamw, dev
+        self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, Any]]" = (
+            weakref.WeakKeyDictionary())
+
+    def graphs(self, model) -> Dict[tuple, Any]:
+        return self._graphs.setdefault(model, {})
+
+    def __call__(self, model, state, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        graphs = self.graphs(model)
+        key = (id(state),) + serve._input_key(batch)
+        cap = graphs.get(key)
+        if cap is None:
+            cfg, adamw = self.cfg, self.adamw
+
+            def step(s):
+                loss = train_step(cfg, model, state, adamw, s)
+                model.zero_grad(set_to_none=True)
+                return {"loss": loss}
+
+            cap, out = serve._capture(step, batch, self.dev)
+            # the graph writes these: they stay alive, and the key's id unique
+            cap.state, cap.state_leaves = state, list(serve._leaves(state))
+            graphs[key] = cap
+            TRACE_COUNT["step"] += 1
+        else:
+            now = list(serve._leaves(state))
+            if len(now) != len(cap.state_leaves) or any(
+                    a is not b for a, b in zip(now, cap.state_leaves)):
+                raise ValueError("the train state holds other tensors than at the capture")
+            out = cap(batch)
+        return out["loss"]
+
+
+def _step_fn(cfg, adamw: AdamWConfig, dev: torch.device):
+    """:func:`train`'s ``step(model, state, batch) -> loss``: a
+    :class:`_GraphedTrainStep` on a card, the eager :func:`train_step` on
+    the CPU (a build, counted in ``TRACE_COUNT``)."""
+    if dev.type == "cuda":
+        return _GraphedTrainStep(cfg, adamw, dev)
+    TRACE_COUNT["step"] += 1
+    return lambda model, state, batch: train_step(cfg, model, state, adamw, batch)
+
+
 def _on_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _on_device(v, dev) for k, v in tree.items()}
@@ -101,16 +183,19 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
     """Train ``arch`` for ``steps`` steps of ``batch`` × ``seq`` tokens in
     bursts of ``burst_steps``, committing a checkpoint under ``ckpt_dir``
     after each; resumes from the last committed burst there. Returns the
-    losses of the steps this call ran. ``report``, if given, receives
-    "step_seconds" (each step's host time to its loss, which waits for the
-    card) and "commits" ({"burst", "seconds", "bytes"} each)."""
+    losses of the steps this call ran. On a card each step is a CUDA graph
+    replay, the first one its capture (module docstring). ``report``, if
+    given, receives "step_seconds" (each step's host time to its loss,
+    which waits for the card; a capture's included), "commits" ({"burst",
+    "seconds", "bytes"} each) and "captures" (each capture's ``stats``:
+    "capture_s", "instantiate_s", "pool_bytes"; none on the CPU)."""
     dev = resolve_device(device)
     cfg = SMOKE_CONFIGS[arch] if smoke else get_config(arch)
     adamw = AdamWConfig(lr=lr, warmup_steps=20)
     data = SyntheticData(SyntheticConfig(cfg.vocab, seq, batch, seed=seed))
     ck = BurstCheckpointer(ckpt_dir)
     report = {} if report is None else report
-    report.update(step_seconds=[], commits=[])
+    report.update(step_seconds=[], commits=[], captures=[])
 
     restored = ck.restore()
     model, masters = api.init_trainable(cfg, seed, dev, max_seq=seq)
@@ -127,6 +212,7 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
         print(f"[train] resumed from burst {start_burst} (step {start_burst * burst_steps})")
 
     extra = stand_ins(cfg, batch, dev)
+    step_fn = _step_fn(cfg, adamw, dev)
     n_bursts = (steps + burst_steps - 1) // burst_steps
     losses = []
     for burst in range(start_burst, n_bursts):
@@ -134,7 +220,7 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
         for s in range(burst * burst_steps, min((burst + 1) * burst_steps, steps)):
             ts = time.perf_counter()
             b = batch_tensors(cfg, data.batch(s), dev, extra)
-            loss = float(train_step(cfg, model, state, adamw, b))
+            loss = float(step_fn(model, state, b))
             report["step_seconds"].append(time.perf_counter() - ts)
             losses.append(loss)
             if s % log_every == 0:
@@ -149,6 +235,8 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
             print("[train] injected crash! rerun to resume.", flush=True)
             sys.stderr.flush()
             os._exit(1)
+    if isinstance(step_fn, _GraphedTrainStep):
+        report["captures"] = [cap.stats for cap in step_fn.graphs(model).values()]
     if losses:
         print(f"[train] done: first loss {losses[0]:.4f} → last {losses[-1]:.4f}")
     return losses

@@ -18,7 +18,9 @@ Each division is by a tensor on the parameters' device (PyTorch multiplies
 by the reciprocal when it divides by a host scalar, which rounds
 differently), and nothing reads a device value back to the host. The
 update runs in place, one leaf at a time, as plain tensor code: AdamW is
-plain XLA in ``repro``.
+plain XLA in ``repro``. Every tensor of the state keeps its storage, the
+step counter too, so a CUDA graph that captured an update (the port's
+train step, ``launch/train.py``) updates the same tensors on each replay.
 """
 
 from __future__ import annotations
@@ -75,12 +77,14 @@ def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: Dict) -> Dict[str, torch.Tensor]:
-    """One step on float32 ``params`` and ``state``, both updated in place;
-    ``grads`` has the same names (any float type) and is not modified.
-    Returns {"grad_norm": the norm before clipping, "lr": this step's
-    rate}, 0-d float32 tensors on the parameters' device."""
+    """One step on float32 ``params`` and ``state``, both updated in place:
+    every parameter, moment and the 0-d int32 counter ``state["step"]``
+    (incremented by 1) stays in its own storage. ``grads`` has the same
+    names (any float type) and is not modified. Returns {"grad_norm": the
+    norm before clipping, "lr": this step's rate}, 0-d float32 tensors on
+    the parameters' device."""
     g, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
-    step = state["step"] + 1
+    step = state["step"].add_(1)
     stepf = step.to(torch.float32)
     lr = cfg.lr * torch.clamp(stepf / _scalar(max(cfg.warmup_steps, 1), stepf), max=1.0)
     b1c = 1 - torch.pow(_scalar(cfg.b1, stepf), stepf)
@@ -91,5 +95,4 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         v.mul_(cfg.b2).add_(gn.square() * (1 - cfg.b2))
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + cfg.weight_decay * p
         p.sub_(lr * delta)
-    state["step"] = step
     return {"grad_norm": gnorm, "lr": lr}

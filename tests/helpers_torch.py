@@ -183,3 +183,94 @@ def logits_seen():
     finally:
         for m in mods:
             m.softmax_cross_entropy = common.softmax_cross_entropy
+
+
+def three_steps_against_reference(make_step):
+    """Three train steps of tinyllama-1.1b's smoke config, b2 × 16, lr 1e-3
+    warming up over 20 steps, as ``repro``'s train CLI runs them, through
+    ``make_step(cfg, adamw_cfg) -> step(model, state, batch) -> loss`` on
+    the CPU, held to ``repro``'s jitted ``api.loss`` + ``adamw_update``
+    from the same parameters (the tolerances of ``tests/test_torch_train.py``'s
+    module docstring)."""
+    import jax.numpy as jnp
+
+    from repro.configs import SMOKE_CONFIGS as REF_SMOKE
+    from repro.models import api as ref_api
+    from repro.optim import adamw as ref_adamw
+
+    from repro_torch.configs import SMOKE_CONFIGS
+    from repro_torch.data.synthetic import SyntheticConfig, SyntheticData
+    from repro_torch.launch.train import batch_tensors
+    from repro_torch.models import api
+    from repro_torch.optim import adamw
+
+    arch = "tinyllama-1.1b"
+    rcfg, cfg = REF_SMOKE[arch], SMOKE_CONFIGS[arch]
+    params, _ = ref_api.init_params(rcfg, jax.random.PRNGKey(0), max_seq=16)
+    tree = jax.tree.map(np.asarray, params)
+    kw = dict(lr=1e-3, warmup_steps=20)
+    rcfg_adamw, cfg_adamw = ref_adamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
+
+    @jax.jit
+    def ref_step(p, o, tokens, labels):
+        b = {"tokens": tokens, "labels": labels}
+        (loss, _), g = jax.value_and_grad(lambda q: ref_api.loss(rcfg, q, b, remat=True),
+                                          has_aux=True)(p)
+        p, o, stats = ref_adamw.adamw_update(rcfg_adamw, p, g, o)
+        return p, o, loss, g, stats["lr"]
+
+    rp = jax.tree.map(jnp.asarray, tree)
+    ro = ref_adamw.adamw_init(rp)
+    model, masters = api.trainable_from_numpy(cfg, tree, "cpu")
+    state = {"params": masters, "opt_state": adamw.adamw_init(masters)}
+    index = leaf_index(cfg, tree)
+    data = SyntheticData(SyntheticConfig(cfg.vocab, 16, 2, seed=0))
+    step = make_step(cfg, cfg_adamw)
+    moved = 0.0
+    for s in range(3):
+        b = data.batch(s)
+        rp, ro, rloss, rgrad, lr = ref_step(rp, ro, jnp.asarray(b["tokens"]),
+                                            jnp.asarray(b["labels"]))
+        with logits_seen() as seen:
+            loss = float(step(model, state, batch_tensors(cfg, b, "cpu")))
+        assert abs(loss - float(rloss)) <= 2 * forward_sites(cfg) * U * seen[0], s
+        moved += float(lr)
+        want = flat_leaves(rp)
+        for name, m in state["params"].items():
+            got = m.numpy().ravel()
+            assert np.abs(got - want[index[name]]).max() <= 2.01 * moved, (s, name)
+            assert torch.equal(model.get_parameter(name).detach(), m.to(
+                model.get_parameter(name).dtype))
+        if s == 0:
+            g = flat_leaves(rgrad)
+            tol_sites = grad_sites(cfg, b["tokens"])
+            for name, m in state["params"].items():
+                gi = g[index[name]]
+                firm = np.abs(gi) > tol_sites * U * np.abs(gi).max()
+                d = np.abs(m.numpy().ravel() - want[index[name]])
+                lim = float(lr) * 2.0 ** -7 + 2 * np.spacing(np.abs(want[index[name]]))
+                assert np.all(d[firm] <= lim[firm]), name
+                assert firm.any(), name
+
+
+def _write(dst, src) -> None:
+    """What a replay does to the graph's outputs: new values, same buffers."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif dst is not None:
+        dst.copy_(src)
+
+
+def eager_record(step, cap, dev):
+    """``launch/serve.py::_record`` without a card: the warm-up runs ``step``
+    on the static inputs and is the result; the "graph" reruns it eagerly
+    into the buffers the warm-up's outputs shaped (a capture executes
+    nothing), as a graph's replay writes into its own."""
+    from repro_torch.launch.serve import _map
+
+    assert dev == torch.device("cpu")
+    out = step(cap.inputs)
+    cap.outputs = _map(torch.clone, out)
+    cap.replay = lambda: _write(cap.outputs, step(cap.inputs))
+    return out

@@ -32,6 +32,8 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_torch import eager_record as _eager_record
+
 from repro_torch.configs import ALL_ARCHS, SMOKE_CONFIGS
 from repro_torch.kernels.counted import work_sink
 from repro_torch.launch import serve as serve_mod
@@ -104,27 +106,6 @@ def test_prefill_runs_on_meta_with_the_counted_stand_ins(arch, prompt_len):
 
 
 # -- the static inputs and outputs both graphed paths share ---------------------
-
-def _write(dst, src) -> None:
-    """What a replay does to the graph's outputs: new values, same buffers."""
-    if isinstance(dst, dict):
-        for k in dst:
-            _write(dst[k], src[k])
-    elif dst is not None:
-        dst.copy_(src)
-
-
-def _eager_record(step, cap, dev):
-    """``serve._record`` without a card: the warm-up runs ``step`` on the
-    static inputs and is the result; the "graph" reruns it eagerly into the
-    buffers the warm-up's outputs shaped (a capture executes nothing), as a
-    graph's replay writes into its own."""
-    assert dev == CPU
-    out = step(cap.inputs)
-    cap.outputs = serve_mod._map(torch.clone, out)
-    cap.replay = lambda: _write(cap.outputs, step(cap.inputs))
-    return out
-
 
 def _eager_captured(step, inputs):
     cap = serve_mod._Captured(inputs)

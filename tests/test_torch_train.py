@@ -35,14 +35,12 @@ import pytest
 import torch
 
 from repro.checkpoint.burst_ckpt import plan_burst_schedule as ref_plan_burst_schedule
-from repro.configs import SMOKE_CONFIGS as REF_SMOKE
 from repro.data.synthetic import SyntheticConfig as RefSyntheticConfig
 from repro.data.synthetic import SyntheticData as RefSyntheticData
 from repro.launch import train as ref_train
-from repro.models import api as ref_api
 from repro.optim import adamw as ref_adamw
 
-from helpers_torch import U, flat_leaves, forward_sites, grad_sites, leaf_index, logits_seen
+from helpers_torch import three_steps_against_reference
 
 from repro_torch.checkpoint.burst_ckpt import BurstCheckpointer, plan_burst_schedule
 from repro_torch.configs import SMOKE_CONFIGS
@@ -210,54 +208,8 @@ def test_plan_bursts_cli_prints_the_reference_text(capsys):
 def test_three_train_steps_match_reference():
     """tinyllama-1.1b's smoke config, b2 × 16, lr 1e-3 warming up over 20
     steps, as ``repro``'s train CLI runs it (module docstring: tolerances)."""
-    arch = "tinyllama-1.1b"
-    rcfg, cfg = REF_SMOKE[arch], SMOKE_CONFIGS[arch]
-    params, _ = ref_api.init_params(rcfg, jax.random.PRNGKey(0), max_seq=16)
-    tree = jax.tree.map(np.asarray, params)
-    kw = dict(lr=1e-3, warmup_steps=20)
-    rcfg_adamw, cfg_adamw = ref_adamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
-
-    @jax.jit
-    def ref_step(p, o, tokens, labels):
-        b = {"tokens": tokens, "labels": labels}
-        (loss, _), g = jax.value_and_grad(lambda q: ref_api.loss(rcfg, q, b, remat=True),
-                                          has_aux=True)(p)
-        p, o, stats = ref_adamw.adamw_update(rcfg_adamw, p, g, o)
-        return p, o, loss, g, stats["lr"]
-
-    rp = jax.tree.map(jnp.asarray, tree)
-    ro = ref_adamw.adamw_init(rp)
-    model, masters = api.trainable_from_numpy(cfg, tree, "cpu")
-    state = {"params": masters, "opt_state": adamw.adamw_init(masters)}
-    index = leaf_index(cfg, tree)
-    data = SyntheticData(SyntheticConfig(cfg.vocab, 16, 2, seed=0))
-    moved = 0.0
-    for s in range(3):
-        b = data.batch(s)
-        prev = flat_leaves(rp)
-        rp, ro, rloss, rgrad, lr = ref_step(rp, ro, jnp.asarray(b["tokens"]),
-                                            jnp.asarray(b["labels"]))
-        with logits_seen() as seen:
-            loss = float(train_mod.train_step(cfg, model, state, cfg_adamw,
-                                              train_mod.batch_tensors(cfg, b, "cpu")))
-        assert abs(loss - float(rloss)) <= 2 * forward_sites(cfg) * U * seen[0], s
-        moved += float(lr)
-        want = flat_leaves(rp)
-        for name, m in state["params"].items():
-            got = m.numpy().ravel()
-            assert np.abs(got - want[index[name]]).max() <= 2.01 * moved, (s, name)
-            assert torch.equal(model.get_parameter(name).detach(), m.to(
-                model.get_parameter(name).dtype))
-        if s == 0:
-            g = flat_leaves(rgrad)
-            tol_sites = grad_sites(cfg, b["tokens"])
-            for name, m in state["params"].items():
-                gi = g[index[name]]
-                firm = np.abs(gi) > tol_sites * U * np.abs(gi).max()
-                d = np.abs(m.numpy().ravel() - want[index[name]])
-                lim = float(lr) * 2.0 ** -7 + 2 * np.spacing(np.abs(want[index[name]]))
-                assert np.all(d[firm] <= lim[firm]), name
-                assert firm.any(), name
+    three_steps_against_reference(
+        lambda cfg, a: lambda model, state, b: train_mod.train_step(cfg, model, state, a, b))
 
 
 def test_resume_matches_uninterrupted(tmp_path):
