@@ -157,7 +157,26 @@ version on the card, and drives the port's paths:
    512 and decode b4 at 528, xlstm-1.3b prefill b4 × 512, tinyllama-1.1b
    train b8 × 128), counted and run on the card: the counted kernel calls
    equal to the card's launches for the same step and to
-   ``step_launches``.
+   ``step_launches``;
+16. the sharded cells (``sharded``): a one-process NCCL group and
+   ``make_host_mesh()``; qwen3-4b's prefill b4 × 512 and 8 decode steps
+   and one tinyllama-1.1b train step b8 × 128 through ``build_cell(...,
+   mesh=)``, each bitwise the unsharded cell's (logits, cache, loss,
+   masters, m, v) with the same RMSNorm and flash launches; with two or
+   more cards, the prefill on a (1, n) mesh in n processes too (logits
+   within 0.085 a row of one card's, ``CommDebugMode``'s collectives equal
+   to the count's); and the dry run per device of repro's 16x16 and
+   2x16x16 meshes for qwen3-4b, granite-moe-1b-a400m and xlstm-1.3b at all
+   four shapes, counted in a process of its own on half of the CPUs beside
+   the earlier phases, every cell directly at its own length (24 records,
+   4 skipped; each per-device argument byte count equal to the resolver's
+   arithmetic and, times the devices, at least one card's; a collective
+   term above 0). From the build on this process keeps the other half of
+   the CPUs, and the ``host_paced`` line gives host-bound call times
+   without the count and beside it.
+
+``python3 chip_smoke.py --multi-card`` runs phase 16's (1, n) prefill alone
+on every visible card.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -167,6 +186,7 @@ the rest of the repository beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -176,6 +196,7 @@ import math
 import os
 import random
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -3224,23 +3245,22 @@ def train_batch(cfg, batch, seq, dev, index=0, seed=1):
 @contextlib.contextmanager
 def logits_seen():
     """A list that receives max |logits| of every cross-entropy the port's
-    losses take inside the block."""
-    from repro_torch.models import common, encdec, recurrent, transformer
+    losses take inside the block (the plain bundles' ``cross_entropy`` calls
+    ``common.softmax_cross_entropy``)."""
+    from repro_torch.models import common
 
     seen = []
+    plain = common.softmax_cross_entropy
 
     def recorded(logits, labels):
         seen.append(float(logits.detach().abs().max()))
-        return common.softmax_cross_entropy(logits, labels)
+        return plain(logits, labels)
 
-    mods = (encdec, recurrent, transformer)
-    for m in mods:
-        m.softmax_cross_entropy = recorded
+    common.softmax_cross_entropy = recorded
     try:
         yield seen
     finally:
-        for m in mods:
-            m.softmax_cross_entropy = common.softmax_cross_entropy
+        common.softmax_cross_entropy = plain
 
 
 def loss_and_grads(cfg, model, batch) -> dict:
@@ -3836,6 +3856,405 @@ def dryrun_path(dev, workdir: Path) -> dict:
     return launches
 
 
+# The sharded phase: repro's model sharding on a torch DeviceMesh.
+# One card: qwen3-4b's prefill of SHARDED_PREFILL and SHARDED_DECODE_STEPS
+# teacher-forced decode steps, and one SHARDED_TRAIN step, through
+# build_cell(..., mesh=make_host_mesh()) on a one-process NCCL group, each
+# bitwise the unsharded cell's; with more cards, the prefill on a (1, n)
+# mesh too; then the dry run per device of repro's production meshes on
+# SHARDED_DRYRUN_ARCHS, within SHARDED_DRYRUN_BUDGET_S.
+SHARDED_PREFILL = (4, 512)
+SHARDED_DECODE_STEPS = 8
+SHARDED_TRAIN = ("tinyllama-1.1b", 8, 128)
+SHARDED_DRYRUN_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "xlstm-1.3b")
+# The sharded dry run counts on the host only (a fake process group, meta
+# tensors): it starts after the build, in a process of its own on half of
+# the CPUs (this process keeps the other half), beside the card phases, and
+# must end within this many seconds
+SHARDED_DRYRUN_BUDGET_S = 900.0
+SHARDED_SKIPPED = 4       # long_500k of qwen3-4b and granite, on each mesh
+COLLECTIVE_KINDS = {"all_gather_into_tensor": "all-gather",
+                    "reduce_scatter_tensor": "reduce-scatter", "all_reduce": "all-reduce",
+                    "shard_dim_alltoall": "all-to-all", "all_to_all_single": "all-to-all"}
+
+
+def _whole(t):
+    """A DTensor's whole value (its block on a one-device mesh), a tensor as
+    it is."""
+    from repro_torch.models.sharding import is_dtensor
+
+    if not is_dtensor(t):
+        return t
+    return t.to_local() if t.device_mesh.size() == 1 else t.full_tensor()
+
+
+def sharded_serving(cfg, dev, mesh) -> dict:
+    """qwen3-4b's prefill of SHARDED_PREFILL (its cache padded for the
+    decode) and SHARDED_DECODE_STEPS decode steps on fixed tokens, through
+    ``build_cell`` cells (``mesh`` None: whole): each step's logits and the
+    final cache, whole."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_cell, shard_batch
+
+    b, p = SHARDED_PREFILL
+    n = SHARDED_DECODE_STEPS
+    pre = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh,
+                     max_seq=p + n)
+    args = pre.materialize(0)
+    logits, cache = pre.run(args)
+    dec = build_cell(cfg, ShapeConfig("decode", p + n, b, "decode"), dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    tokens = torch.randint(0, cfg.vocab, (n, b, 1), generator=gen, device=dev)
+    out = [logits]
+    for j in range(n):
+        tok = tokens[j] if mesh is None else shard_batch(cfg, {"t": tokens[j]}, mesh)["t"]
+        lg, cache = dec.run((args[0], cache, tok, torch.tensor(p + j, device=dev)))
+        out.append(lg)
+    torch.cuda.synchronize(dev)
+    return {"logits": [_whole(t) for t in out], "cache": {k: _whole(v) for k, v in cache.items()}}
+
+
+def sharded_train(cfg, dev, mesh, b, s) -> dict:
+    """One train step of ``cfg`` at b × s through a ``build_cell`` cell:
+    the loss, the masters and the moments after it, whole."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(cfg, ShapeConfig("train", s, b, "train"), dev, mesh=mesh)
+    model, state, batch = cell.materialize(0)
+    loss = cell.run((model, state, batch))
+    torch.cuda.synchronize(dev)
+    opt = state["opt_state"]
+    return {"loss": _whole(loss), "masters": {k: _whole(v) for k, v in state["params"].items()},
+            "m": {k: _whole(v) for k, v in opt["m"].items()},
+            "v": {k: _whole(v) for k, v in opt["v"].items()}}
+
+
+def _bitwise(where, got, want) -> int:
+    """Raises unless every tensor of ``got`` equals ``want``'s bit for bit;
+    returns how many were compared."""
+    if isinstance(want, dict):
+        return sum(_bitwise(f"{where}.{k}", got[k], v) for k, v in want.items())
+    if isinstance(want, list):
+        return sum(_bitwise(f"{where}[{i}]", g, w) for i, (g, w) in enumerate(zip(got, want)))
+    if not torch.equal(got, want):
+        raise AssertionError(f"sharded {where}: not bitwise the unsharded cell's "
+                             f"(max |Δ| {float((got.float() - want.float()).abs().max())})")
+    return 1
+
+
+def _comm_kinds(counts) -> dict:
+    out = {}
+    for op, n in counts.items():
+        kind = COLLECTIVE_KINDS[str(op).split(".")[-1]]
+        out[kind] = out.get(kind, 0) + n
+    return out
+
+
+def _multi_card_worker(rank: int, n: int, store: str, out_path: str) -> None:
+    """One process of the (1, n) qwen3-4b prefill: its logits, the
+    collectives ``CommDebugMode`` saw and this card's peak bytes."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import init_local_group
+    from repro_torch.launch.steps import build_cell
+
+    torch.cuda.set_device(rank)
+    init_local_group(rank, n, "nccl", path=store)
+    mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=("data", "model"))
+    cfg = get_config(SERVE_ARCH)
+    b, p = SHARDED_PREFILL
+    dev = torch.device("cuda", rank)
+    cell = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh)
+    args = cell.materialize(0)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CommDebugMode() as comm:
+        logits, _ = cell.run(args)
+    logits = logits.full_tensor()
+    torch.cuda.synchronize(dev)
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev)], device=dev)
+    peaks = [torch.zeros_like(peak) for _ in range(n)]
+    torch.distributed.all_gather(peaks, peak)
+    if rank == 0:
+        torch.save({"logits": logits.cpu(), "comm": _comm_kinds(comm.get_comm_counts()),
+                    "peaks": [int(x) for x in peaks]}, out_path)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def multi_card_prefill(cfg, one_card_logits, n: int, workdir: Path) -> dict:
+    """qwen3-4b's prefill on a (1, n) mesh of n cards in n processes: its
+    logits within SERVE_REL_LIMIT a row of the one-card run's, the
+    collectives each kind as many as the count on a (1, n) ``fake`` mesh
+    gives, each card's peak beside the counted per-device bytes."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import count_mesh
+    from repro_torch.launch.steps import build_cell
+
+    b, p = SHARDED_PREFILL
+    fake = count_mesh((1, n), ("data", "model"))
+    _, stats = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), "meta",
+                          mesh=fake).count()
+    torch.distributed.destroy_process_group()
+    workdir.mkdir(parents=True, exist_ok=True)
+    store, out_path = workdir / "store", workdir / "multi_card.pt"
+    for f in (store, out_path):
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_multi_card_worker, args=(n, str(store), str(out_path)), nprocs=n,
+                       start_method="spawn", join=True)
+    res = torch.load(out_path)
+    rel = float(_row_rel(res["logits"], one_card_logits.cpu()).max())
+    if rel > SERVE_REL_LIMIT:
+        raise AssertionError(f"sharded (1, {n}) prefill: row rel {rel} > {SERVE_REL_LIMIT}")
+    if res["comm"] != stats.coll_count_by_kind:
+        raise AssertionError(f"sharded (1, {n}) prefill: CommDebugMode saw {res['comm']}, "
+                             f"the count {stats.coll_count_by_kind}")
+    return {"cards": n, "seconds": time.perf_counter() - t0, "max_row_rel": rel,
+            "collectives": res["comm"], "counted_collective_bytes": stats.coll_bytes_by_kind,
+            "card_peak_bytes": res["peaks"], "counted_peak_bytes": stats.peak_bytes,
+            "counted_argument_bytes": stats.argument_bytes}
+
+
+def expected_argument_bytes(cfg, shape, mesh_axes) -> int:
+    """One device's argument bytes of a sharded cell from the resolver's
+    arithmetic alone (each leaf's bytes over the devices that split it):
+    the module (and for train the float32 masters, m, v and the step
+    counter), the inputs along the batch, the decode cache and position."""
+    from repro_torch.models import api
+    from repro_torch.models.sharding import logical_to_spec, rules_for, shard_shape
+
+    rules = rules_for(cfg.family)
+
+    def share(shp, logical, itemsize):
+        spec = logical_to_spec(logical, rules, mesh_axes, tuple(shp))
+        return math.prod(shard_shape(tuple(shp), spec, mesh_axes)) * itemsize
+
+    model = api.init_params(cfg, None, "meta", max_seq=shape.seq_len)
+    logical = api.param_logical(cfg, model)
+    total = sum(share(p.shape, logical[n], p.element_size()) for n, p in model.named_parameters())
+    specs = api.input_specs(cfg, shape)
+
+    def leaves(tree, logical_tree=None):
+        if tree is None:
+            return 0
+        if isinstance(tree, dict):
+            return sum(leaves(v, None if logical_tree is None else logical_tree[k])
+                       for k, v in tree.items())
+        shp, dtype = tree
+        item = torch.empty((), dtype=dtype).element_size()
+        if not shp:
+            return item
+        lg = logical_tree if logical_tree is not None else ("batch",) + (None,) * (len(shp) - 1)
+        return share(shp, lg, item)
+
+    if shape.kind == "train":
+        total += sum(3 * share(p.shape, logical[n], 4) for n, p in model.named_parameters())
+        return total + 4 + leaves(specs)
+    if shape.kind == "prefill":
+        return total + leaves(specs)
+    cache = specs.pop("cache")
+    return total + leaves(specs) + leaves(cache, api.cache_logical(cfg, shape.global_batch,
+                                                                   shape.seq_len))
+
+
+def split_cpus() -> tuple:
+    """(this process's CPUs, the count's): the two halves of its affinity
+    (one CPU: the same one for both)."""
+    cpus = sorted(os.sched_getaffinity(0))
+    half = len(cpus) // 2
+    return (cpus[:half] or cpus), (cpus[half:] or cpus)
+
+
+def host_paced(dev) -> dict:
+    """Times a caller sees of host-bound calls at decode size [4, 2560]
+    (``cuda_ms``, 200 calls, the median of 5 rounds): the RMSNorm wrapper,
+    whose launch path is all host work, and the plain RMSNorm, a chain of
+    small PyTorch ops."""
+    import statistics
+
+    from repro_torch.kernels.rmsnorm.kernel import rmsnorm_rows_cuda
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_plain
+
+    x, w = rms_inputs(RMS_CASES["decode_d2560"], dev)
+    calls = {"rmsnorm_wrapper_ms": lambda: rmsnorm_rows_cuda(x, w, 1e-6),
+             "rmsnorm_plain_ms": lambda: rmsnorm_plain(x, w, 1e-6)}
+    return {k: statistics.median(cuda_ms(fn, 200) for _ in range(5)) for k, fn in calls.items()}
+
+
+class ShardedDryrun:
+    """``python -m repro_torch.launch.dryrun --arch SHARDED_DRYRUN_ARCHS
+    --multi-pod both --device cpu`` in a process of its own, pinned to
+    ``cpus`` (its count workers follow its affinity), started at once;
+    :meth:`result` waits for it and returns its records."""
+
+    def __init__(self, workdir: Path, cpus):
+        shutil.rmtree(workdir, ignore_errors=True)
+        workdir.mkdir(parents=True)
+        self.workdir = workdir
+        self.cpus = list(cpus)
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        self.log = open(workdir / "dryrun.log", "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             ",".join(SHARDED_DRYRUN_ARCHS), "--multi-pod", "both", "--device", "cpu",
+             "--out", str(workdir / "records")], env=env, cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT, start_new_session=True,
+            preexec_fn=lambda: os.sched_setaffinity(0, self.cpus))
+        self.seconds = None
+        self._done = threading.Thread(target=self._wait, daemon=True)
+        self._done.start()
+        atexit.register(self.stop)
+
+    def stop(self):
+        """Ends the process and its count workers (its session) if it runs."""
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+
+    def _wait(self):
+        self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+
+    def result(self) -> tuple:
+        """(exit code, its wall seconds, the records); the process is killed
+        once it has outlived SHARDED_DRYRUN_BUDGET_S."""
+        left = SHARDED_DRYRUN_BUDGET_S - (time.perf_counter() - self.t0)
+        self._done.join(max(left, 0.0))
+        if self.proc.poll() is None:
+            self.stop()
+            self.log.close()
+            raise AssertionError(f"sharded dryrun: not done in {SHARDED_DRYRUN_BUDGET_S} s")
+        self._done.join()
+        self.log.close()
+        recs = [json.loads(p.read_text())
+                for p in sorted((self.workdir / "records").glob("*.json"))]
+        return self.proc.returncode, self.seconds, recs
+
+
+def sharded_dryrun(run: ShardedDryrun, one_card: Path) -> dict:
+    """The per-device records of SHARDED_DRYRUN_ARCHS (``run``) within
+    SHARDED_DRYRUN_BUDGET_S: every record ok or skipped (long_500k of the
+    quadratic two), with repro's keys and n_chips 256 / 512; per device the
+    argument bytes the resolver's arithmetic gives, times n_chips at least
+    the one-card record's; FLOPs times n_chips at least the one-card
+    count's; a collective term above 0 (every weight is sharded there)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import SHAPES
+    from repro_torch.launch.mesh import production_shape
+
+    rc, seconds, recs = run.result()
+    want_n = 2 * len(SHARDED_DRYRUN_ARCHS) * len(SHAPES)
+    skipped = [r for r in recs if r["status"] == "skipped"]
+    if (rc != 0 or len(recs) != want_n or len(skipped) != SHARDED_SKIPPED
+            or any(r["status"] not in ("ok", "skipped") for r in recs)):
+        raise AssertionError(f"sharded dryrun: exit {rc}, {len(recs)} records of {want_n}, "
+                             f"{len(skipped)} skipped: "
+                             f"{[r.get('error') for r in recs if r['status'] == 'error']}")
+    table = {}
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        name = f"{r['arch']} {r['shape']} {r['mesh']}"
+        missing = [k for k in DRYRUN_KEYS if k not in r]
+        shape_, names = production_shape(r["mesh"] == "pod2x16x16")
+        n = math.prod(shape_)
+        one = json.loads((one_card / f"{r['arch']}_{r['shape']}_1card.json").read_text())
+        args_dev = r["memory"]["argument_size_in_bytes"]
+        cfg, shape = get_config(r["arch"]), SHAPES[r["shape"]]
+        want_args = expected_argument_bytes(cfg, shape, (names, shape_))
+        flops = r["cost_analysis"]["flops"]
+        if (missing or r["n_chips"] != n or "cards_needed" in r
+                or args_dev != want_args
+                or args_dev * n < one["memory"]["argument_size_in_bytes"]
+                or flops * n < one["cost_analysis"]["flops"]
+                or not r["roofline"]["t_collective"] > 0):
+            raise AssertionError(f"sharded dryrun {name}: missing {missing}, n_chips "
+                                 f"{r['n_chips']}, argument bytes {args_dev} (want "
+                                 f"{want_args}; one card {one['memory']}), flops {flops} "
+                                 f"(one card {one['cost_analysis']['flops']}), roofline "
+                                 f"{r['roofline']}")
+        mem = r["memory"]
+        table[name] = {"gb": (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9,
+                       "flops": flops, "collective_gb": r["collective_bytes_total"] / 1e9,
+                       "dominant": r["dominant"], "fits": r["fits"],
+                       "count_s": r["t_compile_s"]}
+    return {"seconds": seconds, "cpus": len(run.cpus), "records": len(recs),
+            "skipped": len(skipped), "budget_s": SHARDED_DRYRUN_BUDGET_S, "cells": table}
+
+
+def sharded_path(dev, workdir: Path, counting: ShardedDryrun) -> dict:
+    """The sharded phase (module comment above SHARDED_PREFILL); ``counting``
+    is its dry run, started beside the earlier phases. Returns the launches
+    of the sharded main path: every count set to 0 just before it, read
+    just after."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    import torch.distributed.tensor  # noqa: F401  (DTensor: the card's torch must have it)
+    from torch.testing._internal.distributed import fake_pg  # noqa: F401
+    gc.collect()
+    torch.cuda.empty_cache()
+    counters = serving_launches()
+    cfg = get_config(SERVE_ARCH)
+    tcfg = get_config(SHARDED_TRAIN[0])
+
+    # the unsharded cells first: the reference, and the launches to match
+    for fn in counters.values():
+        fn.launches = 0
+    whole = sharded_serving(cfg, dev, None)
+    whole_launches = {k: fn.launches for k, fn in counters.items()}
+    whole_train = sharded_train(tcfg, dev, None, *SHARDED_TRAIN[1:])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = make_host_mesh("cuda")
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    got = sharded_serving(cfg, dev, mesh)
+    got_train = sharded_train(tcfg, dev, mesh, *SHARDED_TRAIN[1:])
+    main_s = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    compared = _bitwise("serving", got, whole) + _bitwise("train", got_train, whole_train)
+    b, p = SHARDED_PREFILL
+    pre, step = step_launches(cfg)
+    want = {k: pre[k] + SHARDED_DECODE_STEPS * step[k] for k in counters}
+    if not (launches == whole_launches == want):
+        raise AssertionError(f"sharded launches {launches}, unsharded {whole_launches}, "
+                             f"step_launches {want}")
+    one_card_logits = whole["logits"][0]
+    del got, whole, got_train, whole_train
+    dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "sharded", "torch": torch.__version__, "mesh": [1, 1],
+            "backend": "nccl", "prefill": [b, p], "decode_steps": SHARDED_DECODE_STEPS,
+            "train": list(SHARDED_TRAIN), "bitwise_tensors": compared,
+            "launches": launches, "main_path_s": main_s}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        line["multi_card"] = multi_card_prefill(cfg, one_card_logits, n, workdir)
+    else:
+        line["multi_card"] = "skipped"
+    line["cards_visible"] = n
+    line["dryrun"] = sharded_dryrun(counting, ROOT / "build" / "dryrun")
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return launches
+
+
 # The activation solvers: repro's planner shapes (tests/test_planners.py),
 # (batch, seq); offload at OFFLOAD_BUDGET · Q_min, remat at REMAT_BUDGET ·
 # Q_min, PIPELINE_STAGES stages; each must raise Infeasible at
@@ -3940,7 +4359,36 @@ def planners_path() -> list:
     return rows
 
 
+def multi_card_main() -> int:
+    """``python3 chip_smoke.py --multi-card``: the sharded phase's (1, n)
+    qwen3-4b prefill alone on every visible card (two or more), against the
+    one-card prefill on card 0; prints its line."""
+    if torch.cuda.device_count() < 2:
+        print("chip_smoke --multi-card: needs two CUDA cards or more", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels._build import load_library
+
+    load_library()
+    dev = torch.device("cuda", 0)
+    cfg = get_config(SERVE_ARCH)
+    one = sharded_serving(cfg, dev, None)["logits"][0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = multi_card_prefill(cfg, one, torch.cuda.device_count(), ROOT / "build" / "sharded")
+    print(nvidia_smi(), flush=True)
+    emit({"phase": "sharded_multi_card", "torch": torch.__version__, **line})
+    return 0
+
+
 def main() -> int:
+    if "--multi-card" in sys.argv[1:]:
+        if not torch.cuda.is_available():
+            print("chip_smoke: torch.cuda.is_available() is False; needs CUDA cards",
+                  file=sys.stderr)
+            return 2
+        return multi_card_main()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one CUDA card",
               file=sys.stderr)
@@ -3978,6 +4426,14 @@ def main() -> int:
     emit({"phase": "build", "device": torch.cuda.get_device_name(0),
           "nvidia_smi": card, "build_s": time.perf_counter() - t0,
           "flash_tensor_core_sass": sass["flash"], "mlstm_tensor_core_sass": sass["mlstm"]})
+
+    # the sharded phase's dry run counts on the host beside the card phases,
+    # on its own half of the CPUs; this process keeps the other half
+    main_cpus, count_cpus = split_cpus()
+    os.sched_setaffinity(0, main_cpus)
+    torch.set_num_threads(len(main_cpus))
+    host_alone = host_paced(dev)
+    counting = ShardedDryrun(ROOT / "build" / "sharded_dryrun", count_cpus)
 
     # -- phase 1b: the host-offload cost model's constants on this card -------
     t0 = time.perf_counter()
@@ -4146,6 +4602,11 @@ def main() -> int:
           **{k: v for k, v in frame.items() if not k.startswith("_")},
           "tolerance": f"{CONV_TOL}*max(1,|score|)"})
 
+    # -- host-bound call times beside the count, against those without it ----
+    emit({"phase": "host_paced", "main_cpus": len(main_cpus), "count_cpus": len(count_cpus),
+          "count_running": counting.proc.poll() is None, "without_count": host_alone,
+          "beside_count": host_paced(dev)})
+
     # -- phase 5: the main path ------------------------------------------------
     sweep_columns_cuda.launches = 0
     conv_window_frame_cuda.launches = 0
@@ -4299,6 +4760,10 @@ def main() -> int:
 
     # -- the dry run: every (arch × shape) cell counted, the cells that fit run
     launches_by_path["dryrun"] = dryrun_path(dev, ROOT / "build" / "dryrun")
+
+    # -- the sharded cells: bitwise the unsharded ones on one card, the
+    # (1, n) prefill with more cards, the dry run per device of the pod meshes
+    launches_by_path["sharded"] = sharded_path(dev, ROOT / "build" / "sharded", counting)
 
     # -- phase 18: times and bounds at the main paths' shapes ------------------
     # ``ms`` is the kernel's device time per launch; ``wrapper_ms`` and

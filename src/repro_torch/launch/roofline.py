@@ -17,7 +17,12 @@ under a ``TorchDispatchMode`` and counts what each dispatched op would do
   ``index_copy``, ``index_add``, a ``copy_`` into part of a tensor), plus
   each kernel's ``work().bytes``; elementwise ops and whole copies are not
   counted, as in ``repro``;
-* collective bytes and counts by kind — empty on one card, keys kept;
+* collective bytes and counts by kind — on a mesh (the step's tensors are
+  DTensors, ``launch/steps.py``), each collective a DTensor layout change
+  dispatches, under ``repro``'s names (``_COLLECTIVES``) and its byte
+  convention: an all-gather its output over the group size, a
+  reduce-scatter its output times the group size, the others their output;
+  empty on one card;
 * ``peak_bytes`` — the most bytes alive at once: the arguments' storages,
   and each storage an op makes, from its dispatch until it is freed (a
   weakref finalizer on the storage), the counterpart of XLA's argument +
@@ -30,6 +35,12 @@ length is too slow; :func:`fit_quadratic` is the counterpart of ``repro``'s
 while-loop trip-count correction: counts at three lengths solved exactly as
 a quadratic in the length, checked exactly at a fourth (and at any other
 length counted beside them).
+
+**Per device.** A DTensor op is not counted itself: the counter lets
+DTensor lay it out (it returns ``NotImplemented`` for DTensor types, as
+``CommDebugMode`` does) and counts the ops that run on each device's local
+blocks, with the kernels' ``work()`` on local shapes, and the collectives
+between them. The count of a sharded step is therefore one device's.
 
 ``analyze_hlo``/``HloAnalyzer`` read XLA's text and are not ported. The
 roofline's constants are the H100's (``core/cost.py``); the collective
@@ -144,6 +155,45 @@ def _fast_output(func, args, kwargs):
                        device=first.device)
 
 
+def _collective_kinds() -> Dict[Any, str]:
+    """{collective op: ``repro``'s kind}: the functional collectives DTensor
+    dispatches, and its shard-to-shard move on a CUDA mesh."""
+    fn = torch.ops._c10d_functional
+    names = {"all_gather_into_tensor": "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+             "all_reduce": "all-reduce", "all_to_all_single": "all-to-all"}
+    out = {getattr(fn, name): kind for name, kind in names.items()}
+    alltoall = getattr(torch.ops._dtensor, "shard_dim_alltoall", None)
+    if alltoall is not None:
+        out[alltoall] = "all-to-all"
+    return out
+
+
+_COLLECTIVES: Dict[Any, str] = {}
+
+
+def _group_size(func, args) -> int:
+    """The process group's size of a functional collective: its
+    ``group_size`` argument, else its named group's."""
+    name = func.overloadpacket.__name__
+    if name == "all_gather_into_tensor":
+        return int(args[1])
+    if name == "reduce_scatter_tensor":
+        return int(args[2])
+    from torch.distributed.distributed_c10d import _resolve_process_group
+
+    return _resolve_process_group(args[-1]).size()
+
+
+def _collective_bytes(kind: str, out_bytes: int, group: int) -> float:
+    """``repro``'s convention (``repro/launch/roofline.py``): all-gather
+    output ÷ group, reduce-scatter output × group, the others output."""
+    if kind == "all-gather":
+        return out_bytes / max(group, 1)
+    if kind == "reduce-scatter":
+        return out_bytes * group
+    return float(out_bytes)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -212,8 +262,13 @@ def storage_bytes(tree) -> int:
 
 
 def _storages(tree) -> Dict[int, int]:
-    return {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
-            for t in tensors_of(tree)}
+    out = {}
+    for t in tensors_of(tree):
+        if type(t).__name__ == "DTensor":  # its block on this device
+            t = t._local_tensor
+        st = t.untyped_storage()
+        out[st._cdata] = st.nbytes()
+    return out
 
 
 class OpCounter(TorchDispatchMode):
@@ -250,18 +305,42 @@ class OpCounter(TorchDispatchMode):
         self.stats.kernel_calls[name] = self.stats.kernel_calls.get(name, 0) + 1
         self.stats.add(f"kernel:{name}", work.flops, work.bytes)
 
+    def _collective(self, func, args, out) -> None:
+        if not _COLLECTIVES:
+            _COLLECTIVES.update(_collective_kinds())
+        kind = _COLLECTIVES.get(func.overloadpacket)
+        if kind is None:
+            return
+        b = _collective_bytes(kind, _nbytes(out), _group_size(func, args))
+        st = self.stats
+        st.coll_bytes_by_kind[kind] = st.coll_bytes_by_kind.get(kind, 0.0) + b
+        st.coll_count_by_kind[kind] = st.coll_count_by_kind.get(kind, 0) + 1
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(t.__name__ == "DTensor" for t in types):
+            return NotImplemented  # DTensor lays it out; its local ops come back here
         kwargs = kwargs or {}
+        if any(t.__name__ == "FakeTensor" for t in types):
+            return func(*args, **kwargs)  # DTensor's shape inference, on whole shapes
         if func is aten.log_sigmoid_forward.default:
             # the output and an empty buffer, as the CUDA kernel returns them:
             # the meta kernel follows the CPU's, whose buffer is x's size
             x = args[0]
             o = _fast_output(aten.sigmoid.default, (x,), {}) if FAST_OUTPUTS else None
             out = (func(*args, **kwargs)[0] if o is None else o, x.new_empty(0))
+        elif func is aten.log_sigmoid_backward.default and FAST_OUTPUTS:
+            # its meta kernel is a Python decomposition: the output is the
+            # gradient's, as from a pointwise op on (grad, x)
+            g, x = args[0], args[1]
+            out = _fast_output(aten.mul.Tensor, (g, x), {})
+            if out is None:
+                out = func(*args, **kwargs)
         else:
             out = _fast_output(func, args, kwargs) if FAST_OUTPUTS else None
             if out is None:
                 out = func(*args, **kwargs)
+                if any(type(t).__name__ == "FakeTensor" for t in tree_leaves(out)):
+                    return out  # a factory of DTensor's shape inference
         name = _PRODUCTS.get(func)
         if name is not None:
             a, b = (args[1], args[2]) if name in ("addmm", "baddbmm") else (args[0], args[1])
@@ -277,6 +356,8 @@ class OpCounter(TorchDispatchMode):
             dst = args[0]
             if _nbytes(dst) < dst.untyped_storage().nbytes():
                 self.stats.add("copy_ (slice update)", 0, 2 * _nbytes(dst))
+        elif not isinstance(func, torch._ops.HigherOrderOperator):
+            self._collective(func, args, out)
         self._track(out)
         return out
 

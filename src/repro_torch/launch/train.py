@@ -30,10 +30,18 @@ runs the eager :func:`train_step`. ``TRACE_COUNT["step"]`` counts captures
 on a card and builds of the eager step on the CPU, as the serve module's
 ``TRACE_COUNT`` does.
 
-``repro``'s ``--production-mesh`` and its ``steps.make_constrain`` lay the
-arrays out over a TPU pod's ("pod", "data", "model") mesh; on one card
-those sharding constraints are the identity, so neither is ported (the
-port's ``launch/mesh.py`` says the same of the mesh layouts).
+**Sharded training.** ``train(..., mesh=...)`` lays the module, the float32
+masters, AdamW's moments and each batch out over a device mesh as
+``launch/steps.py``'s sharded cells do (``api.param_logical``, the batch
+along "batch") and runs each step eagerly under ``implicit_replication``
+through ``sharding.sharded(PLAIN, rules)``: no CUDA graph
+(NCCL under capture is not ported). A checkpoint gathers the state whole
+and process 0 writes it; a resumed run lays the restored state out again.
+``--production-mesh`` (``--multi-pod`` for two pods) builds ``repro``'s
+production mesh over the processes ``torchrun`` launched (``RANK``,
+``WORLD_SIZE``; the group starts from a ``FileStore`` beside the
+checkpoints, never an address) and refuses any count but 256 (512), naming
+it, as ``jax.make_mesh`` does.
 
 Usage:
     python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50 --device cpu
@@ -45,6 +53,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import tempfile
@@ -60,10 +69,13 @@ from ..configs import SMOKE_CONFIGS, get_config
 from ..data.synthetic import SyntheticConfig, SyntheticData
 from ..device import resolve_device
 from ..models import api
-from ..models.common import PLAIN
+from ..configs.base import ShapeConfig
+from ..models.common import PLAIN, Kernels
+from ..models.sharding import is_dtensor, rules_for, sharded
 from ..obs.metrics import METRICS
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from . import serve
+from .mesh import init_local_group, make_production_mesh, production_shape, torchrun_rank
 
 __all__ = ["train", "train_step", "batch_tensors", "stand_ins", "main", "TRACE_COUNT"]
 
@@ -89,15 +101,17 @@ def batch_tensors(cfg, batch: Dict[str, np.ndarray], device,
 
 
 def train_step(cfg, model, state, adamw: AdamWConfig,
-               batch: Dict[str, torch.Tensor], remat: bool = True) -> torch.Tensor:
+               batch: Dict[str, torch.Tensor], remat: bool = True,
+               kernels: Kernels = PLAIN) -> torch.Tensor:
     """One step: the loss and its gradients through autograd (the plain
     versions, with remat unless ``remat`` is False), AdamW on the float32
     masters ``state["params"]`` and the moments of ``state["opt_state"]`` in
     place, then the masters cast into the module. Returns the loss before
-    the update, a 0-d float32 tensor."""
+    the update, a 0-d float32 tensor. A sharded step passes
+    ``sharding.sharded(PLAIN, rules)`` as ``kernels``."""
     for p in model.parameters():
         p.grad = None
-    loss, _ = api.loss(cfg, model, batch, remat=remat, kernels=PLAIN)
+    loss, _ = api.loss(cfg, model, batch, remat=remat, kernels=kernels)
     loss.backward()
     grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
              for n, p in model.named_parameters()}
@@ -176,10 +190,54 @@ def _on_device(tree, dev):
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
 
 
+def _gathered(tree):
+    """A tree of tensors and DTensors with every DTensor made whole."""
+    if isinstance(tree, dict):
+        return {k: _gathered(v) for k, v in tree.items()}
+    return tree.full_tensor() if is_dtensor(tree) else tree
+
+
+def _sharded_step_fn(cfg, adamw: AdamWConfig, mesh):
+    """:func:`train`'s ``step`` on a mesh: the batch laid out, then one
+    eager sharded :func:`train_step`; returns the loss, whole."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from .steps import shard_batch
+
+    kernels = sharded(PLAIN, rules_for(cfg.family))
+    TRACE_COUNT["step"] += 1
+
+    def step(model, state, batch):
+        with implicit_replication():
+            loss = train_step(cfg, model, state, adamw, shard_batch(cfg, batch, mesh),
+                              kernels=kernels)
+        return loss.full_tensor() if is_dtensor(loss) else loss
+    return step
+
+
+def production_mesh_of_launch(multi_pod: bool, ckpt_dir: str, device):
+    """``repro``'s production mesh over ``torchrun``'s processes: the
+    launch's process count is checked first (``ValueError`` naming it),
+    then the default group starts from a ``FileStore`` in ``ckpt_dir``."""
+    shape, _ = production_shape(multi_pod)
+    rank, world = torchrun_rank() or (0, 1)
+    need = math.prod(shape)
+    if world != need:
+        raise ValueError(f"--production-mesh: the {'x'.join(map(str, shape))} mesh needs "
+                         f"{need} processes, this launch has {world}")
+    dev = torch.device(device)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    init_local_group(rank, world, "nccl" if dev.type == "cuda" else "gloo",
+                     path=os.path.join(ckpt_dir, "process_group_store"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
+    return make_production_mesh(multi_pod, dev.type)
+
+
 def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_dir: str,
           smoke: bool = True, crash_after_burst: int = -1, seed: int = 0,
           log_every: int = 10, lr: float = 1e-3, device="cuda",
-          report: Optional[dict] = None):
+          report: Optional[dict] = None, mesh=None):
     """Train ``arch`` for ``steps`` steps of ``batch`` × ``seq`` tokens in
     bursts of ``burst_steps``, committing a checkpoint under ``ckpt_dir``
     after each; resumes from the last committed burst there. Returns the
@@ -188,7 +246,9 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
     given, receives "step_seconds" (each step's host time to its loss,
     which waits for the card; a capture's included), "commits" ({"burst",
     "seconds", "bytes"} each) and "captures" (each capture's ``stats``:
-    "capture_s", "instantiate_s", "pool_bytes"; none on the CPU)."""
+    "capture_s", "instantiate_s", "pool_bytes"; none on the CPU). With
+    ``mesh`` the run is sharded over it (module docstring); every process
+    of the mesh calls this with the same arguments."""
     dev = resolve_device(device)
     cfg = SMOKE_CONFIGS[arch] if smoke else get_config(arch)
     adamw = AdamWConfig(lr=lr, warmup_steps=20)
@@ -211,8 +271,13 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
         api.load_masters(model, state["params"])
         print(f"[train] resumed from burst {start_burst} (step {start_burst * burst_steps})")
 
+    if mesh is not None:
+        from .steps import CellSpec
+
+        lay = CellSpec(cfg, ShapeConfig("train", seq, batch, "train"), dev, None, (), mesh=mesh)
+        model, state, _ = lay.shard((model, state, {}))
     extra = stand_ins(cfg, batch, dev)
-    step_fn = _step_fn(cfg, adamw, dev)
+    step_fn = _step_fn(cfg, adamw, dev) if mesh is None else _sharded_step_fn(cfg, adamw, mesh)
     n_bursts = (steps + burst_steps - 1) // burst_steps
     losses = []
     for burst in range(start_burst, n_bursts):
@@ -227,7 +292,12 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
                 print(f"[train] step {s:5d}  loss {loss:.4f}  "
                       f"({time.time() - t0:.1f}s into burst {burst})")
         tc = time.perf_counter()
-        nbytes = ck.save(burst + 1, state)
+        if mesh is None:
+            nbytes = ck.save(burst + 1, state)
+        else:  # the state gathered whole on every process, written by process 0
+            whole = _gathered(state)
+            nbytes = ck.save(burst + 1, whole) if torch.distributed.get_rank() == 0 else 0
+            torch.distributed.barrier()
         report["commits"].append({"burst": burst + 1, "seconds": time.perf_counter() - tc,
                                   "bytes": nbytes})
         print(f"[train] burst {burst + 1}/{n_bursts} committed ({time.time() - t0:.1f}s)")
@@ -256,6 +326,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plan-bursts", action="store_true",
                     help="print the julienne checkpoint-cadence plan and exit")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="shard over repro's 16x16 mesh: 256 processes launched by torchrun")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production-mesh: the 2x16x16 mesh, 512 processes")
     args = ap.parse_args(argv)
     if args.plan_bursts:
         part = plan_burst_schedule(args.steps, step_seconds=1.0,
@@ -263,8 +337,14 @@ def main(argv=None) -> int:
         print(part.summary())
         print("burst bounds:", part.bounds)
         return 0
+    mesh = None
+    if args.production_mesh:
+        mesh = production_mesh_of_launch(args.multi_pod, args.ckpt_dir, args.device)
+    elif args.multi_pod:
+        ap.error("--multi-pod goes with --production-mesh")
     train(args.arch, args.steps, args.batch, args.seq, args.burst_steps, args.ckpt_dir,
-          smoke=not args.full, crash_after_burst=args.crash_after_burst, device=args.device)
+          smoke=not args.full, crash_after_burst=args.crash_after_burst, device=args.device,
+          mesh=mesh)
     return 0
 
 

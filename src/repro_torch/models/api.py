@@ -26,6 +26,7 @@ shapes and types those of a seeded model, and no numbers;
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -38,7 +39,7 @@ from .common import (COMPUTE_DTYPE, KERNELS, PLAIN, AbstractGenerator, Kernels,
 
 __all__ = ["init_params", "params_from_numpy", "init_trainable", "trainable_from_numpy",
            "load_masters", "loss", "prefill", "decode_step", "cache_shape", "extra_inputs",
-           "input_specs", "TOKEN_DTYPE"]
+           "input_specs", "TOKEN_DTYPE", "param_logical", "cache_logical"]
 
 TOKEN_DTYPE = torch.int64  # the port's token ids (``repro``'s are int32)
 
@@ -234,7 +235,10 @@ def loss(cfg, model, batch: Dict[str, torch.Tensor], remat: bool = True,
          kernels: Kernels = PLAIN) -> Tuple[torch.Tensor, torch.Tensor]:
     """batch {"tokens", "labels"} [B, S] (vlm: and "vision"; encdec: and
     "audio", of :func:`extra_inputs`' shapes) → (loss, ce), 0-d float32
-    tensors with the module's parameters in their graph."""
+    tensors with the module's parameters in their graph. A model sharded
+    over a mesh runs through ``sharding.sharded(kernels, rules)``, whose
+    ``constrain`` is ``repro``'s layout at its sites (the same for
+    :func:`prefill` and :func:`decode_step`)."""
     tokens, labels = batch["tokens"], batch["labels"]
     if cfg.family == "hybrid":
         return recurrent.zamba_loss(cfg, model, tokens, labels, remat, kernels)
@@ -292,3 +296,91 @@ def cache_shape(cfg, batch: int, max_seq: int):
     if module is encdec:
         return encdec.encdec_cache_shape(cfg, batch, max_seq)
     return transformer.lm_cache_shape(cfg, batch, max_seq)
+
+
+# -- logical axes (models/sharding.py) -----------------------------------------
+# The port's own tables of ``repro``'s annotations (``init_*`` of each family,
+# ``*_cache_shape``). A parameter's table drops the leading "layers" axes of
+# ``repro``'s stacked leaves, which map to no mesh axis, since the port keeps
+# one parameter per layer; a cache leaf keeps them, as the port's cache is
+# stacked too. Keys are the port's parameter names with each index a "#".
+
+_ATTN = {"wq": ("d_in", "feat"), "wk": ("d_in", "feat"), "wv": ("d_in", "feat"),
+         "wo": ("feat", "d_in"), "bq": ("feat",), "bk": ("feat",), "bv": ("feat",),
+         "q_norm": ("none",), "k_norm": ("none",)}
+_SWIGLU = {"w1": ("d_in", "feat"), "w3": ("d_in", "feat"), "w2": ("feat", "d_in")}
+_GELU = {"w1": ("d_in", "feat"), "b1": ("feat",), "w2": ("feat", "d_in"), "b2": ("none",)}
+_MOE = {"router": ("d_in", "none"), "w1": ("experts", "d_in", None),
+        "w3": ("experts", "d_in", None), "w2": ("experts", None, "d_in")}
+_MLSTM = {"wq": ("d_in", "feat"), "wk": ("d_in", "feat"), "wv": ("d_in", "feat"),
+          "wi": ("d_in", "none"), "wf": ("d_in", "none"), "wo_gate": ("d_in", "feat"),
+          "out_proj": ("feat", "d_in")}
+_SLSTM = {"w_in": ("d_in", None), "r": ("none", "none", "none"), "b": ("none",),
+          "out_proj": ("d_in", "feat"), "ff_w1": ("d_in", "feat"), "ff_w3": ("d_in", "feat"),
+          "ff_w2": ("feat", "d_in")}
+_MAMBA = {"in_proj": ("d_in", "feat"), "conv_w": ("none", "feat"), "dt_bias": ("none",),
+          "A_log": ("none",), "D": ("none",), "out_proj": ("feat", "d_in")}
+_NORM = ("none",)
+_LN = {"w": _NORM, "b": _NORM}
+
+
+def _under(prefix: str, table: Mapping[str, tuple]) -> Dict[str, tuple]:
+    return {f"{prefix}.{k}": v for k, v in table.items()}
+
+
+def _logical_table(cfg) -> Dict[str, tuple]:
+    top = {"embed": ("vocab", "d_in"), "head": ("d_in", "vocab"), "final_norm": _NORM}
+    if cfg.family in ("dense", "moe", "vlm"):
+        return {**top, "layers.#.ln1": _NORM, "layers.#.ln2": _NORM,
+                **_under("layers.#.attn", _ATTN),
+                **_under("layers.#.mlp", _MOE if cfg.family == "moe" else _SWIGLU),
+                "cross.#.ln": _NORM, "cross.#.gate": _NORM, **_under("cross.#.attn", _ATTN)}
+    if cfg.family == "encdec":
+        out = {**top, "pos_enc": ("none", "d_in"), "pos_dec": ("none", "d_in"),
+               **_under("enc_ln", _LN), **_under("dec_ln", _LN),
+               **_under("enc.#.attn", _ATTN), **_under("enc.#.mlp", _GELU),
+               **_under("dec.#.self_attn", _ATTN), **_under("dec.#.cross", _ATTN),
+               **_under("dec.#.mlp", _GELU)}
+        for ln in ("enc.#.ln1", "enc.#.ln2", "dec.#.ln1", "dec.#.ln2", "dec.#.lnc"):
+            out.update(_under(ln, _LN))
+        return out
+    if cfg.family == "ssm":
+        return {**top, **_under("groups.#.m.#.cell", _MLSTM), "groups.#.m.#.ln": _NORM,
+                **_under("groups.#.s", _SLSTM), "groups.#.s_ln": _NORM}
+    if cfg.family == "hybrid":
+        return {**top, **_under("groups.#.#.cell", _MAMBA), "groups.#.#.ln": _NORM,
+                **_under("tail.#.cell", _MAMBA), "tail.#.ln": _NORM,
+                **_under("shared.attn", _ATTN), **_under("shared.mlp", _SWIGLU),
+                "shared.ln": _NORM, "shared.mlp_ln": _NORM}
+    raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def param_logical(cfg, model: Optional[torch.nn.Module] = None) -> Dict[str, tuple]:
+    """{parameter name: its logical axes} for every parameter of ``model``
+    (built without numbers on ``meta`` when None), ``repro``'s annotation
+    of the same weight without its stacked "layers" axes."""
+    if model is None:
+        model = init_params(cfg, None, "meta", max_seq=8)
+    table = _logical_table(cfg)
+    out = {}
+    for name, p in model.named_parameters():
+        logical = table[re.sub(r"\.\d+(?=\.|$)", ".#", name)]
+        if len(logical) != p.dim():
+            raise ValueError(f"{name}: {p.dim()} dims, logical axes {logical}")
+        out[name] = logical
+    return out
+
+
+def cache_logical(cfg, batch: int, max_seq: int):
+    """The logical axes of each :func:`cache_shape` leaf, nested as it is
+    (``repro``'s ``cache_shape(...)[1]``; a hybrid config without a tail
+    has ``"tail": None``). ``batch`` and ``max_seq`` do not enter."""
+    del batch, max_seq
+    module = _module(cfg)
+    if cfg.family == "hybrid":
+        return recurrent.zamba_cache_logical(cfg)
+    if module is recurrent:
+        return recurrent.xlstm_cache_logical()
+    if module is encdec:
+        return encdec.encdec_cache_logical()
+    return transformer.lm_cache_logical(cfg)

@@ -57,17 +57,19 @@ class Attention(nn.Module):
         self.q_norm = frozen(p["q_norm"], PARAM_DTYPE) if norm else None
         self.k_norm = frozen(p["k_norm"], PARAM_DTYPE) if norm else None
 
-    def _heads(self, x, w, b, n_heads):
-        y = x @ w
+    def _heads(self, x, w, b, n_heads, kernels: Kernels):
+        y = kernels.matmul(x, w)
         if b is not None:
             y = y + b
-        return y.unflatten(-1, (n_heads, self.cfg.hd))
+        # laid out before the split: a layout that splits the features is
+        # gathered by ``heads`` (the plain split here)
+        return kernels.heads(kernels.constrain(y), n_heads, self.cfg.hd)
 
     def project_q(self, x, positions: Optional[torch.Tensor], kernels: Kernels = KERNELS):
         """x [B, S, d] → q [B, S, H, hd] (bf16); qk-norm, then RoPE at
         ``positions`` unless they are None."""
         cfg = self.cfg
-        q = self._heads(x, self.wq, self.bq, cfg.n_heads)
+        q = self._heads(x, self.wq, self.bq, cfg.n_heads, kernels)
         if self.q_norm is not None:
             q = rmsnorm(q, self.q_norm, cfg.norm_eps, kernels)
         return q if positions is None else apply_rope(q, positions, cfg.rope_theta)
@@ -76,8 +78,8 @@ class Attention(nn.Module):
         """x [B, S, d] → k, v [B, S, KV, hd] (bf16); k-norm and RoPE on k as
         :meth:`project_q` does on q."""
         cfg = self.cfg
-        k = self._heads(x, self.wk, self.bk, cfg.n_kv_heads)
-        v = self._heads(x, self.wv, self.bv, cfg.n_kv_heads)
+        k = self._heads(x, self.wk, self.bk, cfg.n_kv_heads, kernels)
+        v = self._heads(x, self.wv, self.bv, cfg.n_kv_heads, kernels)
         if self.k_norm is not None:
             k = rmsnorm(k, self.k_norm, cfg.norm_eps, kernels)
         if positions is not None:
@@ -92,16 +94,28 @@ class Attention(nn.Module):
         cross-attention (keys and values from ``kv_x``). ``rope=False``
         leaves q and k unrotated. Returns (out [B, S, d], (k, v))."""
         pos = positions if rope else None
-        q = self.project_q(x, pos, kernels)
+        c = kernels.constrain
+        q = c(self.project_q(x, pos, kernels))
         k, v = self.project_kv(x if kv_x is None else kv_x, pos, kernels)
+        if kv_x is None:  # repro lays out the self-attention k and v, not the cross ones
+            k, v = c(k), c(v)
         o = kernels.attention(q, k, v, causal)
-        return o.flatten(-2) @ self.wo, (k, v)
+        # laid out after the heads are joined: the product's gradient comes
+        # back through the layout unsplit across the heads, which a mesh axis
+        # that does not divide them could not split
+        return kernels.matmul(c(o.flatten(-2)), self.wo), (k, v)
 
-    def _attend(self, q, cache_k, cache_v, visible: Optional[torch.Tensor]) -> torch.Tensor:
+    def _attend(self, q, cache_k, cache_v, visible: Optional[torch.Tensor],
+                kernels: Kernels) -> torch.Tensor:
         """One query position q [B, 1, H, hd] against the cache [B, S, KV,
         hd]: scores, softmax and the weighted sum accumulate in float32, the
         weights rounded to bf16 first, as ``repro`` does; keys where
         ``visible`` is False are masked to ``NEG_INF``."""
+        return kernels.decode_attention(self._attend_heads, q, cache_k, cache_v,
+                                        visible) @ self.wo
+
+    def _attend_heads(self, q, cache_k, cache_v, visible) -> torch.Tensor:
+        """:meth:`_attend` before the output projection: [B, 1, H · hd] bf16."""
         cfg = self.cfg
         k = cache_k.to(torch.float32)
         v = cache_v.to(torch.float32)
@@ -112,7 +126,7 @@ class Attention(nn.Module):
             s = s.masked_fill(~visible, NEG_INF)
         w = torch.softmax(s, dim=-1).to(COMPUTE_DTYPE).to(torch.float32)
         o = torch.einsum("bkgqs,bskh->bqkgh", w, v)
-        return o.reshape(b, 1, cfg.n_heads * hd).to(COMPUTE_DTYPE) @ self.wo
+        return o.reshape(b, 1, cfg.n_heads * hd).to(COMPUTE_DTYPE)
 
     def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
         """One token x [B, 1, d] at position ``pos`` (an int or a 0-d int64
@@ -125,15 +139,14 @@ class Attention(nn.Module):
         pos = position(pos, x.device)
         q = self.project_q(x, pos.view(1, 1), kernels)
         k_new, v_new = self.project_kv(x, pos.view(1, 1), kernels)
-        index = pos.view(1)
-        cache_k.index_copy_(1, index, k_new)
-        cache_v.index_copy_(1, index, v_new)
+        kernels.write_at(cache_k, pos, k_new)
+        kernels.write_at(cache_v, pos, v_new)
         visible = torch.arange(cache_k.shape[1], device=x.device) <= pos
-        return self._attend(q, cache_k, cache_v, visible)
+        return self._attend(q, cache_k, cache_v, visible, kernels)
 
     def decode_cross(self, x, cache_k, cache_v, kernels: Kernels = KERNELS):
         """One token x [B, 1, d] against a cross-attention cache [B, Sk, KV,
         hd] that prefill filled: q only is projected (``repro`` also projects
         k and v of a stand-in and discards them), no RoPE, no mask, no
         update."""
-        return self._attend(self.project_q(x, None, kernels), cache_k, cache_v, None)
+        return self._attend(self.project_q(x, None, kernels), cache_k, cache_v, None, kernels)

@@ -15,6 +15,12 @@ rematerializes where ``repro`` does (``run_layer``).
 A model built without numbers (on ``meta``, :class:`AbstractGenerator`)
 runs through :data:`COUNTED`, the kernels' stand-ins, when a step is
 counted rather than run (``launch/roofline.py``).
+
+Sharded over a mesh (``models/sharding.py``, ``launch/steps.py``), a model's
+parameters and inputs are DTensors and it runs through
+``sharding.sharded``'s bundle: each kernel under ``local_map`` on each
+device's block, and the bundle's layout fields (:class:`Kernels`) where the
+mesh decides how an operation runs; the model code is the same.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+import operator
 from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
@@ -48,9 +55,53 @@ __all__ = [
 ]
 
 
+def _as_is(x, *logical):
+    return x
+
+
+def _heads(y, n_heads: int, head_dim: int) -> torch.Tensor:
+    return y.unflatten(-1, (n_heads, head_dim))
+
+
+def _embed(w, tokens) -> torch.Tensor:
+    return w[tokens]
+
+
+def _new_cache(shapes, like, logical=None, make=torch.zeros):
+    if shapes is None:
+        return None
+    if isinstance(shapes, dict):
+        return {k: _new_cache(v, like, None, make) for k, v in shapes.items()}
+    shape, dtype = shapes
+    return make(shape, dtype=dtype, device=like.device)
+
+
+def _write_prefix(cache, i: int, kv) -> None:
+    cache[i, :, :kv.shape[1]] = kv
+
+
+def _write_at(cache, pos, new) -> None:
+    cache.index_copy_(1, pos.view(1), new)
+
+
+def _whole(fn, module, *args, means=()):
+    return fn(*args)
+
+
+def _decode_attention(fn, q, cache_k, cache_v, visible):
+    return fn(q, cache_k, cache_v, visible)
+
+
+def _cross_entropy(logits, labels) -> torch.Tensor:
+    # this module's function as it is at each call, so that a test can wrap
+    # it to read the logits every loss takes
+    return softmax_cross_entropy(logits, labels)
+
+
 @dataclasses.dataclass(frozen=True)
 class Kernels:
-    """The model's kernel-backed functions, swapped together.
+    """The model's kernel-backed functions, swapped together, and the
+    operations whose layout a mesh decides.
 
     ``rmsnorm(x, w, eps)`` → like x; ``attention(q, k, v, causal)`` in the
     model layout ``[B, S, H, hd]`` / ``[B, S, KV, hd]``; ``mlstm(q, k, v,
@@ -63,11 +114,38 @@ class Kernels:
     ``meta`` only, each function adding its kernel's work to an open count
     and returning empty outputs of the kernel's shapes and types (it raises
     on any other device).
+
+    The other fields are the plain tensor code by default, in every bundle
+    here; ``sharding.sharded`` fills them for DTensors on a mesh:
+    ``constrain(x)`` lays an activation out at ``repro``'s sites (its
+    ``make_constrain``) and ``layout(x, *logical)`` by the logical axes
+    given, both the identity here; ``matmul(x, w)``; ``heads(y, n_heads,
+    head_dim)`` splits a projection's last dim into heads;
+    ``embed(w, tokens)`` the table's rows; ``new_cache(shapes, like,
+    logical, make)`` a cache tree from its {leaf: (shape, dtype)} tree on
+    ``like``'s device (None stays None; ``logical`` the cache's logical
+    axes); ``write_prefix(cache, i, kv)`` is ``cache[i, :, :S] = kv``,
+    ``write_at(cache, pos, new)`` is ``cache[:, pos] = new[:, 0]`` in place;
+    ``cross_entropy(logits, labels)`` is :func:`softmax_cross_entropy`;
+    ``local(fn, module, *args, means=())`` is ``fn(*args)`` (on a mesh, on
+    each device's batch block); ``decode_attention(fn, q, cache_k, cache_v,
+    visible)`` is ``fn(q, cache_k, cache_v, visible)``.
     """
 
     rmsnorm: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
     attention: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, bool], torch.Tensor]
     mlstm: Callable
+    constrain: Callable[[torch.Tensor], torch.Tensor] = _as_is
+    layout: Callable = _as_is
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = operator.matmul
+    heads: Callable = _heads
+    embed: Callable = _embed
+    new_cache: Callable = _new_cache
+    write_prefix: Callable = _write_prefix
+    write_at: Callable = _write_at
+    cross_entropy: Callable = _cross_entropy
+    local: Callable = _whole
+    decode_attention: Callable = _decode_attention
 
 
 def _kernel_attention(q, k, v, causal):

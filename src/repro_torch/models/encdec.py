@@ -26,9 +26,9 @@ from torch import nn
 
 from .attention import Attention, init_attention
 from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
-                     frozen, layernorm, ones_init, position, run_layer, softmax_cross_entropy,
-                     zeros_init)
+                     frozen, layernorm, ones_init, position, run_layer, zeros_init)
 from .mlp import GeluMLP, init_gelu_mlp
+from .sharding import CROSS_CACHE, KV_CACHE
 
 __all__ = ["EncDecLM", "init_encdec", "encode", "encdec_forward", "encdec_loss",
            "encdec_prefill", "encdec_decode_step", "encdec_cache_shape"]
@@ -57,9 +57,10 @@ class EncoderLayer(nn.Module):
         self.mlp = GeluMLP(p["mlp"])
 
     def forward(self, x, kernels: Kernels = KERNELS):
+        c = kernels.constrain
         a, _ = self.attn(self.ln1(x), None, kernels, causal=False, rope=False)
-        x = x + a
-        return x + self.mlp(self.ln2(x))
+        x = c(x + a)
+        return c(x + self.mlp(self.ln2(x), kernels))
 
 
 class DecoderLayer(nn.Module):
@@ -72,16 +73,18 @@ class DecoderLayer(nn.Module):
         self.mlp = GeluMLP(p["mlp"])
 
     def forward(self, x, enc_out, positions, kernels: Kernels = KERNELS):
+        c = kernels.constrain
         a, skv = self.self_attn(self.ln1(x), positions, kernels)
-        x = x + a
+        x = c(x + a)
         a, ckv = self.cross(self.lnc(x), None, kernels, causal=False, kv_x=enc_out, rope=False)
-        x = x + a
-        return x + self.mlp(self.ln2(x)), skv, ckv
+        x = c(x + a)
+        return c(x + self.mlp(self.ln2(x), kernels)), skv, ckv
 
     def decode(self, x, cache_k, cache_v, cross_k, cross_v, pos, kernels: Kernels = KERNELS):
-        x = x + self.self_attn.decode(self.ln1(x), cache_k, cache_v, pos, kernels)
-        x = x + self.cross.decode_cross(self.lnc(x), cross_k, cross_v, kernels)
-        return x + self.mlp(self.ln2(x))
+        c = kernels.constrain
+        x = c(x + self.self_attn.decode(self.ln1(x), cache_k, cache_v, pos, kernels))
+        x = c(x + self.cross.decode_cross(self.lnc(x), cross_k, cross_v, kernels))
+        return c(x + self.mlp(self.ln2(x), kernels))
 
 
 class EncDecLM(nn.Module):
@@ -132,7 +135,7 @@ def encode(cfg, model: EncDecLM, audio, kernels: Kernels = KERNELS,
     """audio [B, F, d] → encoder output [B, F, d] bf16; with ``remat``
     each layer keeps only its input for the backward."""
     f = audio.shape[1]
-    x = audio.to(COMPUTE_DTYPE) + model.pos_enc[:f]
+    x = kernels.constrain(audio.to(COMPUTE_DTYPE) + model.pos_enc[:f])
     for layer in model.enc:
         x = run_layer(layer, x, kernels, remat=remat)
     return model.enc_ln(x)
@@ -146,20 +149,21 @@ def _decoder(cfg, model: EncDecLM, tokens, audio, kernels: Kernels, cache=None):
     enc_out = encode(cfg, model, audio, kernels)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = model.embed[tokens] + model.pos_dec[:s]
+    x = kernels.constrain(kernels.embed(model.embed, tokens) + model.pos_dec[:s])
     for i, layer in enumerate(model.dec):
         x, (k, v), (ck, cv) = layer(x, enc_out, positions, kernels)
         if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            cache["cross_k"][i] = ck
-            cache["cross_v"][i] = cv
+            kernels.write_prefix(cache["k"], i, k)
+            kernels.write_prefix(cache["v"], i, v)
+            kernels.write_prefix(cache["cross_k"], i, ck)
+            kernels.write_prefix(cache["cross_v"], i, cv)
     return x
 
 
 def encdec_forward(cfg, model: EncDecLM, tokens, audio, kernels: Kernels = KERNELS):
     """tokens [B, S], audio [B, F, d] → logits [B, S, V]."""
-    return model.dec_ln(_decoder(cfg, model, tokens, audio, kernels)) @ model.head
+    return kernels.matmul(model.dec_ln(_decoder(cfg, model, tokens, audio, kernels)),
+                          model.head)
 
 
 def _decoder_hidden(layer, x, enc_out, positions, kernels):
@@ -174,10 +178,10 @@ def encdec_loss(cfg, model: EncDecLM, tokens, labels, audio, remat: bool = True,
     enc_out = encode(cfg, model, audio, kernels, remat=remat)
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = model.embed[tokens] + model.pos_dec[:s]
+    x = kernels.constrain(kernels.embed(model.embed, tokens) + model.pos_dec[:s])
     for layer in model.dec:
         x = run_layer(_decoder_hidden, layer, x, enc_out, positions, kernels, remat=remat)
-    ce = softmax_cross_entropy(model.dec_ln(x) @ model.head, labels)
+    ce = kernels.cross_entropy(kernels.matmul(model.dec_ln(x), model.head), labels)
     return ce, ce
 
 
@@ -187,13 +191,17 @@ def encdec_cache_shape(cfg, batch: int, max_seq: int) -> Dict[str, Tuple[Tuple[i
     return {"k": kv, "v": kv, "cross_k": cross, "cross_v": cross}
 
 
+def encdec_cache_logical():
+    """The logical axes of each :func:`encdec_cache_shape` leaf."""
+    return {"k": KV_CACHE, "v": KV_CACHE, "cross_k": CROSS_CACHE, "cross_v": CROSS_CACHE}
+
+
 def encdec_prefill(cfg, model: EncDecLM, tokens, audio, max_seq: int,
                    kernels: Kernels = KERNELS):
     """Returns (logits of the last position [B, 1, V], cache), the self
     cache padded with zeros to ``max_seq``."""
-    cache = {name: torch.zeros(shape, dtype=dtype, device=tokens.device)
-             for name, (shape, dtype) in encdec_cache_shape(cfg, tokens.shape[0],
-                                                            max_seq).items()}
+    cache = kernels.new_cache(encdec_cache_shape(cfg, tokens.shape[0], max_seq), tokens,
+                              encdec_cache_logical())
     x = _decoder(cfg, model, tokens, audio, kernels, cache)
     return model.dec_ln(x[:, -1:]) @ model.head, cache
 
@@ -202,7 +210,8 @@ def encdec_decode_step(cfg, model: EncDecLM, cache, token, pos, kernels: Kernels
     """token [B, 1] at ``pos`` (an int or a 0-d int64 tensor on the token's
     device) → (logits [B, 1, V], cache), the self cache updated in place."""
     pos = position(pos, token.device)
-    x = model.embed[token] + model.pos_dec.index_select(0, pos.view(1))
+    x = kernels.constrain(kernels.embed(model.embed, token)
+                          + model.pos_dec.index_select(0, pos.view(1)))
     for i, layer in enumerate(model.dec):
         x = layer.decode(x, cache["k"][i], cache["v"][i], cache["cross_k"][i],
                          cache["cross_v"][i], pos, kernels)

@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import COMPUTE_DTYPE, dense_init, frozen, zeros_init
+from .common import COMPUTE_DTYPE, KERNELS, Kernels, dense_init, frozen, zeros_init
 
 __all__ = ["SwiGLU", "init_swiglu", "GeluMLP", "init_gelu_mlp"]
 
@@ -30,11 +30,11 @@ class SwiGLU(nn.Module):
         self.w3 = frozen(p["w3"], COMPUTE_DTYPE)
         self.w2 = frozen(p["w2"], COMPUTE_DTYPE)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        g = x @ self.w1
-        u = x @ self.w3
+    def forward(self, x: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
+        g = kernels.matmul(x, self.w1)
+        u = kernels.matmul(x, self.w3)
         h = F.silu(g.to(torch.float32)).to(COMPUTE_DTYPE) * u
-        return h @ self.w2
+        return kernels.matmul(h, self.w2)
 
 
 def init_gelu_mlp(cfg, gen) -> dict:
@@ -53,7 +53,7 @@ class GeluMLP(nn.Module):
         for name in ("w1", "b1", "w2", "b2"):
             setattr(self, name, frozen(p[name], COMPUTE_DTYPE))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.w1 + self.b1
+    def forward(self, x: torch.Tensor, kernels: Kernels = KERNELS) -> torch.Tensor:
+        h = kernels.matmul(x, self.w1) + self.b1
         h = F.gelu(h.to(torch.float32), approximate="tanh").to(COMPUTE_DTYPE)
-        return h @ self.w2 + self.b2
+        return kernels.matmul(h, self.w2) + self.b2

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import COMPUTE_DTYPE, dense_init, frozen
+from .common import COMPUTE_DTYPE, KERNELS, Kernels, dense_init, frozen
 
 __all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing", "load_balance_loss"]
 
@@ -109,10 +109,21 @@ class MoE(nn.Module):
         probs = self.router_probs(x)
         return route(probs, m.top_k, moe_capacity(m, probs.shape[1]))
 
-    def forward(self, x: torch.Tensor, with_aux: bool = False):
+    def forward(self, x: torch.Tensor, with_aux: bool = False, kernels: Kernels = KERNELS):
         """x [B, S, d] bf16 → [B, S, d] bf16; with ``with_aux``, (that, the
         load-balance loss of the router probabilities, computed again from
-        x, and the routing's choices)."""
+        x, and the routing's choices).
+
+        The block runs through ``kernels.local``: on a mesh, on each
+        device's batch block with the experts gathered whole; the
+        load-balance loss then takes the two means it multiplies over every
+        block, as one device takes them over the whole batch."""
+        if not with_aux:
+            return kernels.local(self._block, self, x)
+        y, means = kernels.local(lambda x_: self._block(x_, means=True), self, x, means=(1,))
+        return y, self.cfg.moe.n_experts * (means[0] * means[1]).sum()
+
+    def _block(self, x: torch.Tensor, means: bool = False):
         m = self.cfg.moe
         b, s, d = x.shape
         r = self.routing(x)
@@ -134,13 +145,21 @@ class MoE(nn.Module):
         w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(COMPUTE_DTYPE)
         y = (w.to(torch.float32)[..., None] * picked.to(torch.float32)).sum(dim=2)
         y = y.to(COMPUTE_DTYPE).reshape(b, s, d)
-        return (y, load_balance_loss(self.router_probs(x), r.sel)) if with_aux else y
+        if means:
+            return y, torch.stack(balance_means(self.router_probs(x), r.sel))
+        return y
 
 
 def load_balance_loss(probs: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """``repro``'s Switch-style auxiliary loss, E · Σ_e (mean probability
     of e) · (mean choices of e per token), over the groups' tokens: probs
     [G, t, E] float32, sel [G, t, k] → 0-d float32."""
-    e = probs.shape[-1]
-    chosen = F.one_hot(sel, e).to(torch.float32).sum(dim=2)      # [G, t, E]
-    return e * (probs.mean(dim=(0, 1)) * chosen.mean(dim=(0, 1))).sum()
+    mean_probs, mean_chosen = balance_means(probs, sel)
+    return probs.shape[-1] * (mean_probs * mean_chosen).sum()
+
+
+def balance_means(probs: torch.Tensor, sel: torch.Tensor):
+    """(mean probability of each expert, mean choices of each expert per
+    token) over the groups' tokens, both [E] float32."""
+    chosen = F.one_hot(sel, probs.shape[-1]).to(torch.float32).sum(dim=2)  # [G, t, E]
+    return probs.mean(dim=(0, 1)), chosen.mean(dim=(0, 1))

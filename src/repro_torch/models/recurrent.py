@@ -21,12 +21,17 @@ cache per application of the shared block ("attn_k", "attn_v" [G, B,
 max_seq, KV, hd] bfloat16). The conv leaves are float32, as ``repro``'s
 ``cache_shape`` declares them (its prefill returns them in bfloat16; the
 values are bfloat16 either way), so one static decode graph takes every
-cache. ``repro``'s sequence-sharding constraint on the shared block's q, k,
-v is a TPU mesh rule: the identity on one card.
+cache.
+
+Under a mesh (``kernels.constrain`` lays out the residual stream at each
+block's output, ``repro``'s sites) the Mamba2 cells and the sLSTM run on
+each device's batch block (``kernels.local``), and the shared block lays
+out its q, k, v along the batch and ``kv_seq``, as ``repro`` does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -34,8 +39,9 @@ from torch import nn
 
 from .attention import Attention
 from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
-                     frozen, ones_init, position, rmsnorm, run_layer, softmax_cross_entropy)
+                     frozen, ones_init, position, rmsnorm, run_layer)
 from .mlp import SwiGLU, init_swiglu
+from .sharding import KV_CACHE
 from .ssm import CONV_K, Mamba2, init_mamba, mamba_dims
 from .xlstm import (MLSTMCell, SLSTMCell, init_mlstm, init_slstm, mlstm_dims, slstm_dims)
 
@@ -62,11 +68,12 @@ class MLSTMBlock(nn.Module):
 
     def forward(self, x, kernels: Kernels = KERNELS):
         y, state = self.cell(kernels.rmsnorm(x, self.ln, self.cfg.norm_eps), kernels)
-        return x + y, state
+        return kernels.constrain(x + y), state
 
     def decode(self, x, state, kernels: Kernels = KERNELS):
-        y, state = self.cell.decode(kernels.rmsnorm(x, self.ln, self.cfg.norm_eps), state)
-        return x + y, state
+        y, state = self.cell.decode(kernels.rmsnorm(x, self.ln, self.cfg.norm_eps), state,
+                                    kernels)
+        return kernels.constrain(x + y), state
 
 
 class XLSTMGroup(nn.Module):
@@ -78,8 +85,8 @@ class XLSTMGroup(nn.Module):
         self.s_ln = frozen(p["s_ln"], PARAM_DTYPE)
 
     def slstm(self, x, state, kernels: Kernels = KERNELS):
-        y, state = self.s(kernels.rmsnorm(x, self.s_ln, self.cfg.norm_eps), state)
-        return x + y, state
+        y, state = self.s(kernels.rmsnorm(x, self.s_ln, self.cfg.norm_eps), state, kernels)
+        return kernels.constrain(x + y), state
 
 
 class XLSTMLM(nn.Module):
@@ -143,30 +150,27 @@ def xlstm_loss(cfg, model: XLSTMLM, tokens, labels, remat: bool = True,
     state; with ``remat`` each mLSTM block keeps only its input for the
     backward (``repro`` checkpoints its inner scan's body), the sLSTM blocks
     keep everything, as in ``repro``."""
-    x = model.embed[tokens]
+    x = kernels.constrain(kernels.embed(model.embed, tokens))
     for group in model.groups:
         for block in group.m:
             x = run_layer(_hidden, block, x, kernels, remat=remat)
         x, _ = group.slstm(x, None, kernels)
-    ce = softmax_cross_entropy(_head(cfg, model, x, kernels), labels)
+    ce = kernels.cross_entropy(_head(cfg, model, x, kernels), labels)
     return ce, ce
 
 
 def xlstm_prefill(cfg, model: XLSTMLM, tokens, max_seq: int, kernels: Kernels = KERNELS):
     """tokens [B, S] → (logits of the last position [B, 1, V], cache): every
     block from the zero state, its final state written into the cache."""
-    cache = {part: {name: torch.empty(shape, dtype=dtype, device=tokens.device)
-                    for name, (shape, dtype) in names.items()}
-             for part, names in xlstm_cache_shape(cfg, tokens.shape[0], max_seq).items()}
-    x = model.embed[tokens]
+    cache = kernels.new_cache(xlstm_cache_shape(cfg, tokens.shape[0], max_seq), tokens,
+                              xlstm_cache_logical(), make=torch.empty)
+    x = kernels.constrain(kernels.embed(model.embed, tokens))
     for g, group in enumerate(model.groups):
         for j, block in enumerate(group.m):
             x, state = block(x, kernels)
-            for name, t in state.items():
-                cache["m"][name][g, j] = t
+            _store(cache["m"], state, g, j)
         x, state = group.slstm(x, None, kernels)
-        for name, t in state.items():
-            cache["s"][name][g] = t
+        _store(cache["s"], state, g)
     return _head(cfg, model, x[:, -1:], kernels), cache
 
 
@@ -176,15 +180,13 @@ def xlstm_decode_step(cfg, model: XLSTMLM, cache, token, pos,
     int or a 0-d tensor) is not used: the recurrent state carries the
     position, and every shape is static."""
     del pos
-    x = model.embed[token]
+    x = kernels.constrain(kernels.embed(model.embed, token))
     for g, group in enumerate(model.groups):
         for j, block in enumerate(group.m):
             x, state = block.decode(x, {n: t[g, j] for n, t in cache["m"].items()}, kernels)
-            for name, t in state.items():
-                cache["m"][name][g, j] = t
+            _store(cache["m"], state, g, j)
         x, state = group.slstm(x, {n: t[g] for n, t in cache["s"].items()}, kernels)
-        for name, t in state.items():
-            cache["s"][name][g] = t
+        _store(cache["s"], state, g)
     return _head(cfg, model, x, kernels), cache
 
 
@@ -208,12 +210,14 @@ class MambaBlock(nn.Module):
         self.cell = Mamba2(cfg, p["cell"])
 
     def forward(self, x, kernels: Kernels = KERNELS):
-        y, state = self.cell(rmsnorm(x, self.ln, self.cfg.norm_eps, kernels))
-        return x + y, state
+        y, state = kernels.local(self.cell, self.cell,
+                                 rmsnorm(x, self.ln, self.cfg.norm_eps, kernels))
+        return kernels.constrain(x + y), state
 
     def decode(self, x, state, kernels: Kernels = KERNELS):
-        y, state = self.cell.decode(rmsnorm(x, self.ln, self.cfg.norm_eps, kernels), state)
-        return x + y, state
+        y, state = kernels.local(self.cell.decode, self.cell,
+                                 rmsnorm(x, self.ln, self.cfg.norm_eps, kernels), state)
+        return kernels.constrain(x + y), state
 
 
 class SharedBlock(nn.Module):
@@ -234,15 +238,24 @@ class SharedBlock(nn.Module):
         return rmsnorm(torch.cat([x, e0], dim=-1), self.ln, self.cfg.norm_eps, kernels)
 
     def _mlp(self, x, kernels):
-        return x + self.mlp(rmsnorm(x, self.mlp_ln, self.cfg.norm_eps, kernels))
+        c = kernels.constrain
+        return c(x + self.mlp(rmsnorm(x, self.mlp_ln, self.cfg.norm_eps, kernels), kernels))
 
     def forward(self, x, e0, positions, kernels: Kernels = KERNELS):
-        a, kv = self.attn(self._cat(x, e0, kernels), positions, kernels)
-        return self._mlp(x + a, kernels), kv
+        # repro lays out this block's q, k, v along the batch and kv_seq, the
+        # mesh axes the batch left free (the identity off a mesh)
+        def qkv_layout(a):
+            if a.dim() == 4:
+                return kernels.layout(a, "batch", "kv_seq", None, None)
+            return a
+
+        qkv = dataclasses.replace(kernels, constrain=qkv_layout)
+        a, kv = self.attn(self._cat(x, e0, kernels), positions, qkv)
+        return self._mlp(kernels.constrain(x + a), kernels), kv
 
     def decode(self, x, e0, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
         a = self.attn.decode(self._cat(x, e0, kernels), cache_k, cache_v, pos, kernels)
-        return self._mlp(x + a, kernels)
+        return self._mlp(kernels.constrain(x + a), kernels)
 
 
 class ZambaLM(nn.Module):
@@ -315,29 +328,43 @@ def _store(leaves, state, *index) -> None:
         leaves[name][index].copy_(t)
 
 
+def xlstm_cache_logical():
+    """The logical axes of each :func:`xlstm_cache_shape` leaf."""
+    return {"m": {"C": ("layers", "none", "batch", "none", "feat", "none"),
+                  "n": ("layers", "none", "batch", "none", "feat"),
+                  "m": ("layers", "none", "batch", "none")},
+            "s": {k: ("layers", "batch", "none", "none") for k in ("c", "n", "h", "m")}}
+
+
+def zamba_cache_logical(cfg):
+    """The logical axes of each :func:`zamba_cache_shape` leaf."""
+    return {"groups": {"ssm": ("layers", "none", "batch", "feat", "none", "none"),
+                       "conv": ("layers", "none", "batch", "none", "feat")},
+            "tail": ({"ssm": ("layers", "batch", "feat", "none", "none"),
+                      "conv": ("layers", "batch", "none", "feat")}
+                     if zamba_groups(cfg)[1] else None),
+            "attn_k": KV_CACHE, "attn_v": KV_CACHE}
+
+
 def zamba_prefill(cfg, model: ZambaLM, tokens, max_seq: int, kernels: Kernels = KERNELS):
     """tokens [B, S] → (logits of the last position [B, 1, V], cache): every
     Mamba2 block from the zero state, its final state written into the
     cache; each shared-block application's k and v into its KV cache, padded
     with zeros to ``max_seq``. S must be a multiple of 128, or at most 128."""
     b, s = tokens.shape
-    cache = {}
-    for part, leaves in zamba_cache_shape(cfg, b, max_seq).items():
-        if leaves is None or part.startswith("attn"):
-            cache[part] = None if leaves is None else torch.zeros(
-                leaves[0], dtype=leaves[1], device=tokens.device)
-        else:
-            cache[part] = {name: torch.empty(shape, dtype=dtype, device=tokens.device)
-                           for name, (shape, dtype) in leaves.items()}
+    shapes, logical = zamba_cache_shape(cfg, b, max_seq), zamba_cache_logical(cfg)
+    cache = {part: kernels.new_cache(leaves, tokens, logical[part],
+                                     make=torch.zeros if part.startswith("attn") else torch.empty)
+             for part, leaves in shapes.items()}
     positions = torch.arange(s, device=tokens.device)[None, :]
-    x = e0 = model.embed[tokens]
+    x = e0 = kernels.constrain(kernels.embed(model.embed, tokens))
     for g, group in enumerate(model.groups):
         for j, block in enumerate(group):
             x, state = block(x, kernels)
             _store(cache["groups"], state, g, j)
         x, (k, v) = model.shared(x, e0, positions, kernels)
-        cache["attn_k"][g, :, :s] = k
-        cache["attn_v"][g, :, :s] = v
+        kernels.write_prefix(cache["attn_k"], g, k)
+        kernels.write_prefix(cache["attn_v"], g, v)
     for j, block in enumerate(model.tail):
         x, state = block(x, kernels)
         _store(cache["tail"], state, j)
@@ -354,14 +381,14 @@ def zamba_loss(cfg, model: ZambaLM, tokens, labels, remat: bool = True,
     casts of the same bfloat16 cotangents); the gradient tests count those
     additions in their bound."""
     positions = torch.arange(tokens.shape[1], device=tokens.device)[None, :]
-    x = e0 = model.embed[tokens]
+    x = e0 = kernels.constrain(kernels.embed(model.embed, tokens))
     for group in model.groups:
         for block in group:
             x = run_layer(_hidden, block, x, kernels, remat=remat)
         x = run_layer(_hidden, model.shared, x, e0, positions, kernels, remat=remat)
     for block in model.tail:
         x = run_layer(_hidden, block, x, kernels, remat=remat)
-    ce = softmax_cross_entropy(_zamba_head(cfg, model, x, kernels), labels)
+    ce = kernels.cross_entropy(_zamba_head(cfg, model, x, kernels), labels)
     return ce, ce
 
 
@@ -372,7 +399,7 @@ def zamba_decode_step(cfg, model: ZambaLM, cache, token, pos, kernels: Kernels =
     depends on ``pos`` and nothing reads it on the host, so a CUDA graph can
     replay the step."""
     pos = position(pos, token.device)
-    x = e0 = model.embed[token]
+    x = e0 = kernels.constrain(kernels.embed(model.embed, token))
     for g, group in enumerate(model.groups):
         for j, block in enumerate(group):
             x, state = block.decode(x, {n: t[g, j] for n, t in cache["groups"].items()},

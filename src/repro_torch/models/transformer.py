@@ -27,9 +27,10 @@ from torch import nn
 
 from .attention import Attention, init_attention
 from .common import (COMPUTE_DTYPE, KERNELS, PARAM_DTYPE, PLAIN, Kernels, dense_init,
-                     frozen, ones_init, position, rmsnorm, run_layer, softmax_cross_entropy)
+                     frozen, ones_init, position, rmsnorm, run_layer)
 from .mlp import SwiGLU, init_swiglu
 from .moe import MoE, init_moe
+from .sharding import CROSS_CACHE, KV_CACHE
 
 __all__ = ["DecoderLM", "init_lm", "lm_forward", "lm_loss", "lm_prefill", "lm_decode_step",
            "lm_cache_shape", "vlm_layout"]
@@ -74,20 +75,20 @@ class DecoderLayer(nn.Module):
     def block(self, x, positions, kernels: Kernels = KERNELS, with_aux: bool = False):
         """(x after the layer, (k, v), the MoE load-balance loss when
         ``with_aux`` on a moe layer, else None)."""
-        eps = self.cfg.norm_eps
+        eps, c = self.cfg.norm_eps, kernels.constrain
         a, kv = self.attn(rmsnorm(x, self.ln1, eps, kernels), positions, kernels)
-        x = x + a
+        x = c(x + a)
         h = rmsnorm(x, self.ln2, eps, kernels)
         if with_aux and isinstance(self.mlp, MoE):
-            m, aux = self.mlp(h, with_aux=True)
-            return x + m, kv, aux
-        return x + self.mlp(h), kv, None
+            m, aux = self.mlp(h, with_aux=True, kernels=kernels)
+            return c(x + m), kv, aux
+        return c(x + self.mlp(h, kernels=kernels)), kv, None
 
     def decode(self, x, cache_k, cache_v, pos, kernels: Kernels = KERNELS):
-        eps = self.cfg.norm_eps
-        x = x + self.attn.decode(rmsnorm(x, self.ln1, eps, kernels), cache_k, cache_v,
-                                 pos, kernels)
-        return x + self.mlp(rmsnorm(x, self.ln2, eps, kernels))
+        eps, c = self.cfg.norm_eps, kernels.constrain
+        x = c(x + self.attn.decode(rmsnorm(x, self.ln1, eps, kernels), cache_k, cache_v,
+                                   pos, kernels))
+        return c(x + self.mlp(rmsnorm(x, self.ln2, eps, kernels), kernels=kernels))
 
 
 class CrossLayer(nn.Module):
@@ -107,11 +108,12 @@ class CrossLayer(nn.Module):
     def forward(self, x, vision, kernels: Kernels = KERNELS):
         h = rmsnorm(x, self.ln, self.cfg.norm_eps, kernels)
         a, kv = self.attn(h, None, kernels, causal=False, kv_x=vision, rope=False)
-        return x + self._gate() * a, kv
+        return kernels.constrain(x + self._gate() * a), kv
 
     def decode(self, x, cache_k, cache_v, kernels: Kernels = KERNELS):
         h = rmsnorm(x, self.ln, self.cfg.norm_eps, kernels)
-        return x + self._gate() * self.attn.decode_cross(h, cache_k, cache_v, kernels)
+        return kernels.constrain(
+            x + self._gate() * self.attn.decode_cross(h, cache_k, cache_v, kernels))
 
 
 class DecoderLM(nn.Module):
@@ -190,23 +192,24 @@ def _trunk(cfg, model: DecoderLM, tokens, kernels: Kernels,
         raise ValueError(f"{cfg.name}: the vlm family needs the vision stand-in")
     s = tokens.shape[1]
     positions = _positions(s, tokens.device)
-    x = model.embed[tokens]
+    x = kernels.constrain(kernels.embed(model.embed, tokens))
     for i, layer in enumerate(model.layers):
         x, (k, v) = layer(x, positions, kernels)
         if cache is not None:
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
+            kernels.write_prefix(cache["k"], i, k)
+            kernels.write_prefix(cache["v"], i, v)
         g = _cross_after(cfg, i)
         if g is not None:
             x, (k, v) = model.cross[g](x, vision, kernels)
             if cache is not None:
-                cache["cross_k"][g] = k
-                cache["cross_v"][g] = v
+                kernels.write_prefix(cache["cross_k"], g, k)
+                kernels.write_prefix(cache["cross_v"], g, v)
     return x
 
 
 def _head(cfg, model: DecoderLM, x, kernels: Kernels) -> torch.Tensor:
-    return rmsnorm(x, model.final_norm, cfg.norm_eps, kernels) @ model.head_weight()
+    return kernels.matmul(rmsnorm(x, model.final_norm, cfg.norm_eps, kernels),
+                          model.head_weight())
 
 
 def lm_forward(cfg, model: DecoderLM, tokens, kernels: Kernels = KERNELS,
@@ -234,7 +237,7 @@ def lm_loss(cfg, model: DecoderLM, tokens, labels, vision=None, remat: bool = Tr
     if cfg.family == "vlm" and vision is None:
         raise ValueError(f"{cfg.name}: the vlm family needs the vision stand-in")
     positions = _positions(tokens.shape[1], tokens.device)
-    x = model.embed[tokens]
+    x = kernels.constrain(kernels.embed(model.embed, tokens))
     aux = None
     for i, layer in enumerate(model.layers):
         x, a = run_layer(_loss_layer, layer, x, positions, kernels, remat=remat)
@@ -243,7 +246,7 @@ def lm_loss(cfg, model: DecoderLM, tokens, labels, vision=None, remat: bool = Tr
         g = _cross_after(cfg, i)
         if g is not None:
             x = run_layer(_loss_cross, model.cross[g], x, vision, kernels, remat=remat)
-    ce = softmax_cross_entropy(_head(cfg, model, x, kernels), labels)
+    ce = kernels.cross_entropy(_head(cfg, model, x, kernels), labels)
     return (ce + 0.01 * aux if aux is not None else ce), ce
 
 
@@ -260,13 +263,22 @@ def lm_cache_shape(cfg, batch: int, max_seq: int) -> Dict[str, Tuple[Tuple[int, 
     return out
 
 
+def lm_cache_logical(cfg):
+    """The logical axes of each :func:`lm_cache_shape` leaf: the self caches
+    sharded along the sequence, the cross caches along the batch only."""
+    out = {"k": KV_CACHE, "v": KV_CACHE}
+    if vlm_layout(cfg)[0]:
+        out.update(cross_k=CROSS_CACHE, cross_v=CROSS_CACHE)
+    return out
+
+
 def lm_prefill(cfg, model: DecoderLM, tokens, max_seq: int, kernels: Kernels = KERNELS,
                vision=None):
     """Forward pass that also fills a KV cache padded with zeros to
     ``max_seq``. Returns (logits of the last position [B, 1, V], cache); the
     head runs on that position only."""
-    cache = {name: torch.zeros(shape, dtype=dtype, device=tokens.device)
-             for name, (shape, dtype) in lm_cache_shape(cfg, tokens.shape[0], max_seq).items()}
+    cache = kernels.new_cache(lm_cache_shape(cfg, tokens.shape[0], max_seq), tokens,
+                              lm_cache_logical(cfg))
     x = _trunk(cfg, model, tokens, kernels, cache, vision)
     return _head(cfg, model, x[:, -1:], kernels), cache
 
@@ -276,7 +288,7 @@ def lm_decode_step(cfg, model: DecoderLM, cache, token, pos, kernels: Kernels = 
     token's device) → (logits [B, 1, V], cache), the self-attention cache
     updated in place."""
     pos = position(pos, token.device)
-    x = model.embed[token]
+    x = kernels.constrain(kernels.embed(model.embed, token))
     for i, layer in enumerate(model.layers):
         x = layer.decode(x, cache["k"][i], cache["v"][i], pos, kernels)
         g = _cross_after(cfg, i)

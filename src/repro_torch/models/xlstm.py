@@ -30,6 +30,11 @@ __all__ = ["MLSTMCell", "SLSTMCell", "init_mlstm", "init_slstm", "slstm_init_sta
 State = Dict[str, torch.Tensor]
 
 
+def _on_batch(a, kernels: Kernels):
+    """``a`` laid out on the batch alone (the identity off a mesh)."""
+    return kernels.layout(a, "batch", *(None,) * (a.dim() - 1))
+
+
 def mlstm_dims(cfg) -> Tuple[int, int, int]:
     """(d_in, H, hd): the mLSTM block up-projects by 2."""
     d_in = 2 * cfg.d_model
@@ -63,29 +68,42 @@ class MLSTMCell(nn.Module):
         for name in self.WEIGHTS:
             setattr(self, name, frozen(p[name], COMPUTE_DTYPE))
 
-    def qkvif(self, x):
+    def qkvif(self, x, kernels: Kernels = KERNELS):
         """q, k, v [B, S, H, hd] in x's type (k scaled by hd^-0.5 after the
-        projection) and the gate pre-activations i, f [B, S, H] in float32."""
+        projection) and the gate pre-activations i, f [B, S, H] in float32.
+        Each projection is laid out on the batch alone, as ``repro`` does."""
         _, H, hd = mlstm_dims(self.cfg)
-        q = (x @ self.wq).unflatten(-1, (H, hd))
-        k = (x @ self.wk).unflatten(-1, (H, hd)) * hd ** -0.5
-        v = (x @ self.wv).unflatten(-1, (H, hd))
-        return q, k, v, (x @ self.wi).float(), (x @ self.wf).float()
 
-    def _out(self, x, h):
-        """Output gate and projection: h [B, S, H, hd] → [B, S, d]."""
-        o = torch.sigmoid((x @ self.wo_gate).float())
-        return (h.flatten(-2).float() * o).to(x.dtype) @ self.out_proj
+        def proj(w):
+            return _on_batch(kernels.matmul(x, w), kernels)
+
+        q = proj(self.wq).unflatten(-1, (H, hd))
+        k = proj(self.wk).unflatten(-1, (H, hd)) * hd ** -0.5
+        v = proj(self.wv).unflatten(-1, (H, hd))
+        return q, k, v, proj(self.wi).float(), proj(self.wf).float()
+
+    def _out(self, x, h, kernels: Kernels):
+        """Output gate and projection: h [B, S, H, hd] → [B, S, d]. The gate
+        and the projection's input are laid out on the batch as h is, so
+        that no product hands h's gradient back split across its heads."""
+        o = torch.sigmoid(_on_batch(kernels.matmul(x, self.wo_gate), kernels).float())
+        return kernels.matmul(_on_batch((h.flatten(-2).float() * o).to(x.dtype), kernels),
+                              self.out_proj)
 
     def forward(self, x, kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, State]:
         """Prefill from the zero state: (y [B, S, d], final state). S must be
         a multiple of the 128-token chunk, or below it."""
-        h, (C, n, m) = kernels.mlstm(*self.qkvif(x))
-        return self._out(x, h), {"C": C, "n": n, "m": m}
+        h, (C, n, m) = kernels.mlstm(*self.qkvif(x, kernels))
+        return self._out(x, h, kernels), {"C": C, "n": n, "m": m}
 
-    def decode(self, x, state: State) -> Tuple[torch.Tensor, State]:
-        """One token x [B, 1, d]: the exact recurrence step, in float32."""
-        q, k, v, i_pre, f_pre = (t[:, 0].float() for t in self.qkvif(x))
+    def decode(self, x, state: State, kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, State]:
+        """One token x [B, 1, d]: the exact recurrence step, in float32
+        (through ``kernels.local``: on a mesh, on each device's batch
+        block)."""
+        return kernels.local(lambda x_, s_: self._decode(x_, s_, kernels), self, x, state)
+
+    def _decode(self, x, state: State, kernels: Kernels) -> Tuple[torch.Tensor, State]:
+        q, k, v, i_pre, f_pre = (t[:, 0].float() for t in self.qkvif(x, kernels))
         logf = F.logsigmoid(f_pre)
         m_prev = state["m"]
         m_new = torch.maximum(logf + m_prev, i_pre)
@@ -97,7 +115,7 @@ class MLSTMCell(nn.Module):
         num = (q[..., None, :] @ C)[..., 0, :]
         den = (q * n).sum(dim=-1)
         h = num / torch.clamp(den.abs(), min=1.0)[..., None]
-        return self._out(x, h[:, None]), {"C": C, "n": n, "m": m_new}
+        return self._out(x, h[:, None], kernels), {"C": C, "n": n, "m": m_new}
 
 
 # -- sLSTM ---------------------------------------------------------------------
@@ -150,9 +168,15 @@ class SLSTMCell(nn.Module):
         h = torch.sigmoid(o_pre) * c / torch.clamp(n.abs(), min=1.0)
         return {"c": c, "n": n, "h": h, "m": m_new}
 
-    def forward(self, x, state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+    def forward(self, x, state: Optional[State] = None,
+                kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, State]:
         """(y [B, S, d], final state), strictly sequential over S, from
-        ``state`` or the zero state. Decode is the same with S = 1."""
+        ``state`` or the zero state. Decode is the same with S = 1. Runs
+        through ``kernels.local``: on a mesh, on each device's batch
+        block."""
+        return kernels.local(self._forward, self, x, state)
+
+    def _forward(self, x, state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
         b, s, d = x.shape
         st = state if state is not None else slstm_init_state(self.cfg, b, x.device)
         pre_all = x @ self.w_in + self.b

@@ -1,0 +1,106 @@
+"""One process of a sharded run on the CPU, for ``tests/test_torch_sharded_run.py``.
+
+    python tests/sharded_gloo_worker.py RANK WORLD MESH_ROWS MESH_COLS WORKDIR
+
+Every process starts a gloo group from a ``FileStore`` in WORKDIR, lays the
+cells out on a (MESH_ROWS, MESH_COLS) ("data", "model") mesh and runs them
+on the CPU through ``launch/steps.py``'s sharded cells, with the parameters
+of ``WORKDIR/inputs.pkl`` (``repro``'s, as numpy, carried across by
+``api.params_from_numpy``):
+
+* qwen3-4b (smoke): a prefill of ``tokens``, then one decode step per
+  column of ``decode_tokens`` (teacher-forced);
+* tinyllama-1.1b (smoke): one train step on ``train_tokens`` /
+  ``train_labels``;
+
+and, when MESH is (1, 1), the same cells unsharded. Process 0 writes each
+result whole (logits, the cache, the loss, each gradient, the masters and
+moments after the step) to ``WORKDIR/out_<rows>x<cols>.pkl``.
+"""
+
+import contextlib
+import os
+import pickle
+import sys
+
+import torch
+
+
+def main(rank, world, rows, cols, workdir):
+    torch.manual_seed(0)
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import SMOKE_CONFIGS
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.steps import build_cell, shard_batch
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS
+    from repro_torch.models.sharding import is_dtensor, rules_for, sharded
+    from repro_torch.optim.adamw import adamw_init
+
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as fh:
+        inp = pickle.load(fh)
+    mesh_mod.init_local_group(rank, world, "gloo", path=os.path.join(workdir, "store"))
+    mesh = init_device_mesh("cpu", (rows, cols), mesh_dim_names=("data", "model"))
+
+    def whole(tree):
+        if isinstance(tree, dict):
+            return {k: whole(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(whole(v) for v in tree)
+        if tree is None:
+            return None
+        t = tree.full_tensor() if is_dtensor(tree) else tree
+        return t.detach().to(torch.float32).numpy() if t.is_floating_point() else t.numpy()
+
+    out = {}
+    meshes = [("sharded", mesh)] + ([("whole", None)] if rows * cols == 1 else [])
+    for label, m in meshes:
+        cfg = SMOKE_CONFIGS["qwen3-4b"]
+        tokens = torch.from_numpy(inp["tokens"])
+        b, s = tokens.shape
+        max_seq = inp["max_seq"]
+        model = api.params_from_numpy(cfg, inp["qwen_params"], "cpu")
+        prefill = build_cell(cfg, ShapeConfig("p", s, b, "prefill"), "cpu", mesh=m)
+        args = prefill.shard((model, {"tokens": tokens}))
+        # the prompt prefilled through the api with the cache padded to max_seq
+        kernels = KERNELS if m is None else sharded(KERNELS, rules_for(cfg.family))
+        scope = contextlib.nullcontext() if m is None else implicit_replication()
+        with scope:
+            logits, cache = api.prefill(cfg, args[0], args[1], max_seq, kernels)
+            steps = [whole(logits)]
+            dec = build_cell(cfg, ShapeConfig("d", max_seq, b, "decode"), "cpu", mesh=m)
+            for j in range(inp["decode_tokens"].shape[1]):
+                tok = torch.from_numpy(inp["decode_tokens"][:, j:j + 1].copy())
+                if m is not None:
+                    tok = shard_batch(cfg, {"t": tok}, m)["t"]
+                lg, cache = dec.fn(args[0], cache, tok, torch.tensor(s + j), kernels=kernels)
+                steps.append(whole(lg))
+        out[label] = {"logits": steps, "cache": whole(cache)}
+
+        tcfg = SMOKE_CONFIGS["tinyllama-1.1b"]
+        tb = {"tokens": torch.from_numpy(inp["train_tokens"]),
+              "labels": torch.from_numpy(inp["train_labels"])}
+        tmodel, masters = api.trainable_from_numpy(tcfg, inp["tiny_params"], "cpu")
+        bt, st = tb["tokens"].shape
+        tcell = build_cell(tcfg, ShapeConfig("t", st, bt, "train"), "cpu", mesh=m)
+        targs = tcell.shard((tmodel, {"params": masters, "opt_state": adamw_init(masters)},
+                             tb))
+        loss = tcell.run(targs)
+        out[label]["train"] = {
+            "loss": whole(loss), "grads": {n: whole(p.grad)
+                                           for n, p in targs[0].named_parameters()},
+            "masters": whole(targs[1]["params"]),
+            "m": whole(targs[1]["opt_state"]["m"]), "v": whole(targs[1]["opt_state"]["v"])}
+    if rank == 0:
+        with open(os.path.join(workdir, f"out_{rows}x{cols}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    r, w, rows, cols = (int(a) for a in sys.argv[1:5])
+    main(r, w, rows, cols, sys.argv[5])

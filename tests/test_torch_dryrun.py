@@ -374,9 +374,25 @@ def test_cli_records_feed_repros_table_maker(cli_records, tmp_path, monkeypatch)
     assert "| xlstm-1.3b | long_500k | 1card |" in table
 
 
-def test_cli_refuses_multi_pod_and_a_missing_card():
+def test_cli_refuses_multi_pod_and_a_missing_card(tmp_path, monkeypatch):
+    """``--multi-pod single`` writes the cell's record per device of the
+    16x16 mesh (``tests/test_torch_sharding.py`` holds its numbers); a
+    request for the card without one still raises."""
+    monkeypatch.setattr(dryrun, "workers", lambda n_tasks: 1)
+    try:
+        assert dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k", "--multi-pod",
+                            "single", "--device", "cpu", "--out", str(tmp_path)]) == 0
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    (path,) = tmp_path.glob("*.json")
+    rec = json.loads(path.read_text())
+    assert path.name == "qwen1.5-0.5b_decode_32k_16x16.json"
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16" and rec["n_chips"] == 256
+    assert all(k in rec for k in REPRO_KEYS) and "cards_needed" not in rec
+    assert rec["collective_bytes_total"] > 0 and rec["roofline"]["t_collective"] > 0
     with pytest.raises(SystemExit):
-        dryrun.main(["--multi-pod", "single", "--device", "cpu"])
+        dryrun.main(["--multi-pod", "pods", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             dryrun.main(["--arch", "tinyllama-1.1b", "--shape", "long_500k"])

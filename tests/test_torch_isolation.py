@@ -36,7 +36,7 @@ def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
     mods = list(_modules())
     for m in ("launch.headcount", "core.placement", "core.placement_torch", "data.ns_optimizer",
               "launch.swarm", "launch.dse", "launch.mesh", "launch.train", "optim.adamw",
-              "checkpoint.burst_ckpt", "data.synthetic"):
+              "checkpoint.burst_ckpt", "data.synthetic", "models.sharding", "launch.steps"):
         assert f"repro_torch.{m}" in mods
     ns = ["--prof", "tests/fixtures/ns_mini/prof.csv", "--dep", "tests/fixtures/ns_mini/dep.csv"]
     code = (
@@ -51,7 +51,11 @@ def test_subprocess_imports_and_runs_without_jax_or_repro(tmp_path):
         "from repro_torch.launch import train\n"
         "rc = rc or train.main(['--device', 'cpu', '--steps', '2', '--batch', '2', '--seq',\n"
         f"                      '16', '--ckpt-dir', {str(tmp_path / 'ck')!r}])\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "from repro_torch.models.sharding import logical_to_spec, rules_for\n"
+        "assert logical_to_spec(('batch', 'kv_seq'), rules_for('ssm'),\n"
+        "                       (('pod', 'data', 'model'), (2, 16, 16)), (1, 524288))[1]\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'triton'))\n"
         "print('BAD', bad)\n"
         "sys.exit(rc if not bad else 3)\n"
     )
