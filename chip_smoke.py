@@ -90,7 +90,8 @@ version on the card, and drives the port's paths:
 12. the model zoo (``zoo``), every earlier model freed first: tinyllama-1.1b,
    qwen1.5-0.5b, granite-moe-1b-a400m, llama-3.2-vision-11b (b4 × p512 ×
    g16), whisper-large-v3 (b4 × p128 × g16 over 1500 audio frames),
-   phi3.5-moe-42b-a6.6b (16 of its 32 layers, b4 × p512 × g16),
+   phi3.5-moe-42b-a6.6b (16 of its 32 layers on one card, b4 × p512 × g16;
+   ``--multi-card`` runs all 32 over four cards),
    deepseek-coder-33b (b1 × p512 × g8) and zamba2-7b (81 layers: 13 groups
    of 6 Mamba2 blocks, each followed by the shared attention block, and 3
    tail blocks; b4 × p512 × g16 and b1 × p2048 × g8), each served at full
@@ -159,8 +160,9 @@ version on the card, and drives the port's paths:
    equal to the card's launches for the same step and to
    ``step_launches``;
 16. the sharded cells (``sharded``): a one-process NCCL group and
-   ``make_host_mesh()``; qwen3-4b's prefill b4 × 512 and 8 decode steps
-   and one tinyllama-1.1b train step b8 × 128 through ``build_cell(...,
+   ``make_host_mesh()``; qwen3-4b's prefill b4 × 512 and 8 decode steps,
+   one tinyllama-1.1b train step b8 × 128 and a granite-moe-1b-a400m
+   prefill b4 × 512 (the bundle's experts) through ``build_cell(...,
    mesh=)``, each bitwise the unsharded cell's (logits, cache, loss,
    masters, m, v) with the same RMSNorm and flash launches; with two or
    more cards, the prefill on a (1, n) mesh in n processes too (logits
@@ -176,7 +178,16 @@ version on the card, and drives the port's paths:
    without the count and beside it.
 
 ``python3 chip_smoke.py --multi-card`` runs phase 16's (1, n) prefill alone
-on every visible card.
+on every visible card, then phi3.5-moe-42b-a6.6b whole (all 32 layers, b4 ×
+512) on a (1, n) mesh, its experts split over "model" and the tokens
+exchanged by all-to-all: the kernel path's logits within twice a rounding
+reference's reading of the plain path (the plain routes replayed), a
+control above that limit, ``CommDebugMode``'s collectives equal to the
+count's (all-to-alls among them), each card's peak beside the count.
+The serving kernels' check against their plain versions (before 3) also
+holds the flash kernel on a causal query shard (rows from ``q_start`` 384,
+the shard of a mesh axis that does not divide the heads) to
+``flash_bound``, the same rows launched from 0 as the control.
 
 Each phase prints one JSON line; the kernels line carries launches, times
 and bounds measured in this run; the last line is the device summary. Any
@@ -639,6 +650,10 @@ FLASH_CASES = {
     "whisper_encoder_b4_s1500": (4, 1500, 1500, 20, 20, 64, False, torch.bfloat16),
     "whisper_cross_b4_s128_sk1500": (4, 128, 1500, 20, 20, 64, False, torch.bfloat16),
 }
+# A causal query shard (sharding._sharded_attention on a mesh axis that does
+# not divide the heads): the last 128 of serve_b4_s512's 512 query rows from
+# position FLASH_Q_START on, against the 512 keys whole.
+FLASH_ROWS_CASE, FLASH_Q_START, FLASH_ROWS = "serve_b4_s512", 384, 128
 
 
 def _randn(gen, shape, dtype, dev, scale=1.0):
@@ -711,13 +726,48 @@ def model_kernel_checks(dev):
         if dtype == torch.bfloat16:
             _, used = _held(got, want, flash_bound(q, k, v, want, causal))
         bound_used[f"flash_{name}"] = used
+    flash_err["rows_from_q_start"], bound_used["flash_rows_from_q_start"], control = (
+        flash_rows_check(dev))
     emit({"phase": "serving_kernels_vs_plain_on_card", "rmsnorm_max_abs_err": rms_err,
           "flash_max_abs_err": flash_err, "share_of_bound_used": bound_used,
           "tolerance": "repro's |Δ| ≤ tol·(1+|plain|) (rmsnorm 1e-2; flash 0.05 bf16, "
                        "2e-5 f32) and the rounding bounds: rmsnorm (d+32)·2^-23·|plain| "
                        "[+ (2^-7 + 2^-14)·|plain| in bf16] + 1e-6; bf16 flash "
-                       "2^-7·|plain| + (2^-8 + Sk·2^-23)·A + 1e-6, A = plain on |v|"})
+                       "2^-7·|plain| + (2^-8 + Sk·2^-23)·A + 1e-6, A = plain on |v|",
+          "flash_rows_from_q_start": {
+              "case": FLASH_ROWS_CASE, "q_start": FLASH_Q_START, "rows": FLASH_ROWS,
+              "control": "the same rows launched with q_start 0",
+              "control_share_of_bound": control}})
     return rms_err, flash_err
+
+
+def flash_rows_inputs(dev):
+    """q's FLASH_ROWS rows from FLASH_Q_START on and k, v whole, of
+    FLASH_ROWS_CASE's inputs (kernel layout)."""
+    q, k, v = flash_inputs(FLASH_CASES[FLASH_ROWS_CASE], dev)
+    return q[:, FLASH_Q_START:FLASH_Q_START + FLASH_ROWS].contiguous(), k, v
+
+
+def flash_rows_check(dev) -> tuple:
+    """The flash kernel on a causal query shard (``q_start`` > 0) within
+    ``flash_bound`` of the plain version on the same rows: (max |Δ|, share
+    of the bound used, the control's share: the same rows launched with
+    ``q_start`` 0, which must exceed the bound)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bkv_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_plain, flash_bound
+
+    q, k, v = flash_rows_inputs(dev)
+    got = flash_attention_bkv_cuda(q, k, v, causal=True, q_start=FLASH_Q_START)
+    wrong = flash_attention_bkv_cuda(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = attention_plain(q, k, v, causal=True, q_start=FLASH_Q_START)
+    bound = flash_bound(q, k, v, want, True, FLASH_Q_START)
+    err, used = _held(got, want, bound)
+    control = float(((wrong.float() - want.float()).abs() / bound).max())
+    if not control > 1.0:
+        raise AssertionError(f"flash q_start control within the bound ({control}): the check "
+                             "does not discriminate")
+    return err, used, control
 
 
 def serve_path(dev, cfg, requests, want_params, want_launches):
@@ -813,12 +863,12 @@ def xlstm_expected(cfg):
 def _scaled_attention(excess: float, first: int):
     """The plain attention with its output scaled by 1 + ``excess`` at query
     positions from ``first`` on."""
-    def attention(q, k, v, causal):
+    def attention(q, k, v, causal, q_start=0):
         from repro_torch.models.common import PLAIN
 
-        o = PLAIN.attention(q, k, v, causal)
+        o = PLAIN.attention(q, k, v, causal, q_start=q_start)
         scale = torch.ones(q.shape[1], device=q.device, dtype=torch.float32)
-        scale[first:] += excess
+        scale[max(first - q_start, 0):] += excess
         return (o.to(torch.float32) * scale[None, :, None, None]).to(q.dtype)
     return attention
 
@@ -1512,6 +1562,27 @@ def flash_entry(dev, launches, errs):
                           "plain_ms": cuda_ms(
                               lambda: attention_plain(q, k, v, causal=causal), 5),
                           "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    q, k, v = flash_rows_inputs(dev)
+    b, _, sk, h, kv, hd, _, _ = FLASH_CASES[FLASH_ROWS_CASE]
+    fn = lambda: flash_attention_bkv_cuda(q, k, v, causal=True, q_start=FLASH_Q_START)  # noqa
+    ms, how, seen = kernel_ms(fn, 10, "flash_mma_kernel")
+    ql = q.reshape(b, kv, FLASH_ROWS, h // kv, hd).permute(0, 1, 3, 2, 4).reshape(
+        b, h, FLASH_ROWS, hd)
+    kl, vl = (t.reshape(b, kv, sk, hd) for t in (k, v))
+    mask = (torch.arange(FLASH_Q_START, FLASH_Q_START + FLASH_ROWS, device=dev)[:, None]
+            >= torch.arange(sk, device=dev)[None, :])
+    lib = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                                         enable_gqa=True), 10)
+    _, nbytes, flops = work(b, FLASH_ROWS, sk, h, kv, hd, True, q.element_size(),
+                            FLASH_Q_START)
+    bound, by = _bound(nbytes, flops, PEAK_BF16_PER_S)
+    by_shape[f"{FLASH_ROWS_CASE}_rows_from_{FLASH_Q_START}"] = {
+        "shape": [b, FLASH_ROWS, sk, h, kv, hd], "q_start": FLASH_Q_START, "flops": flops,
+        "ms": ms, "ms_from": how, "profiled_launches": seen, "wrapper_ms": cuda_ms(fn, 10),
+        "plain_ms": cuda_ms(lambda: attention_plain(q, k, v, causal=True,
+                                                    q_start=FLASH_Q_START), 5),
+        "bound_ms": bound, "bound_by": by, "library_ms": lib,
+        "library_call": "scaled_dot_product_attention with the shard's boolean mask"}
     head = by_shape["serve_b4_s512"]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -1526,7 +1597,8 @@ def flash_entry(dev, launches, errs):
                                 "bound_by", "library_ms")},
         "library_call": "scaled_dot_product_attention(enable_gqa=True), [B, H, S, hd]",
         "shape": "B 4, S 512, H 32, KV 8, hd 128, causal, bf16; b1 x 1000, the vlm cross, "
-                 "whisper encoder and zamba2 (hd 112, MHA) shapes below",
+                 "whisper encoder, zamba2 (hd 112, MHA) and a causal query shard (rows "
+                 "384-511 against 512 keys, q_start 384) shapes below",
         "by_shape": by_shape,
     }
 
@@ -2618,8 +2690,8 @@ def rounding_reference(dev, seed: int = 7):
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     def shadow(kernel_fn, plain_fn):
-        def fn(*args):
-            got, want = kernel_fn(*args), plain_fn(*args)
+        def fn(*args, **kw):
+            got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
             share = float((got != want).to(torch.float32).mean())
             return _one_step(want, share, gen)
         return fn
@@ -2660,26 +2732,26 @@ class RoutePin:
         for m in self.mods:
             self.log[id(m)] = []
 
-            def routing(x, m=m, fn=type(m).routing):
-                r = fn(m, x)
+            def route_probs(probs, m=m, fn=type(m).route_probs):
+                r = fn(m, probs)
                 self.log[id(m)].append(r)
                 return r
-            m.routing = routing
+            m.route_probs = route_probs
         try:
             yield
         finally:
             for m in self.mods:
-                del m.routing
+                del m.route_probs
 
     @contextlib.contextmanager
     def replay(self):
         for m in self.mods:
-            m.routing = lambda x, it=iter(self.log[id(m)]): next(it)
+            m.route_probs = lambda probs, it=iter(self.log[id(m)]): next(it)
         try:
             yield
         finally:
             for m in self.mods:
-                del m.routing
+                del m.route_probs
 
 
 def zoo_parity(cfg, params, dev, requests, extra=None) -> dict:
@@ -3866,6 +3938,12 @@ def dryrun_path(dev, workdir: Path) -> dict:
 SHARDED_PREFILL = (4, 512)
 SHARDED_DECODE_STEPS = 8
 SHARDED_TRAIN = ("tinyllama-1.1b", 8, 128)
+# a full-width MoE prefill (arch, batch, prompt) through the sharded bundle's
+# experts on the one-card mesh, bitwise the unsharded cell
+SHARDED_MOE = ("granite-moe-1b-a400m", 4, 512)
+# --multi-card: after qwen3-4b, this MoE model whole (every layer) on a (1, n)
+# mesh of the n cards, its experts split over "model"
+MULTI_CARD_MOE = ("phi3.5-moe-42b-a6.6b", 4, 512)
 SHARDED_DRYRUN_ARCHS = ("qwen3-4b", "granite-moe-1b-a400m", "xlstm-1.3b")
 # The sharded dry run counts on the host only (a fake process group, meta
 # tensors): it starts after the build, in a process of its own on half of
@@ -3912,6 +3990,18 @@ def sharded_serving(cfg, dev, mesh) -> dict:
         out.append(lg)
     torch.cuda.synchronize(dev)
     return {"logits": [_whole(t) for t in out], "cache": {k: _whole(v) for k, v in cache.items()}}
+
+
+def sharded_prefill(cfg, dev, mesh, b, p) -> dict:
+    """``cfg``'s prefill of b × p through a ``build_cell`` cell (``mesh``
+    None: whole): its logits and cache, whole."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import build_cell
+
+    cell = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh)
+    logits, cache = cell.run(cell.materialize(0))
+    torch.cuda.synchronize(dev)
+    return {"logits": _whole(logits), "cache": {k: _whole(v) for k, v in cache.items()}}
 
 
 def sharded_train(cfg, dev, mesh, b, s) -> dict:
@@ -3985,6 +4075,161 @@ def _multi_card_worker(rank: int, n: int, store: str, out_path: str) -> None:
                     "peaks": [int(x) for x in peaks]}, out_path)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
+
+
+def sharded_by_layer(cfg, mesh, dev, max_seq: int, seed: int = 0):
+    """``cfg``'s model as DTensor parameters on ``mesh`` with each process
+    holding only its blocks: built on ``meta``, then each layer's weights
+    made whole on the card from ``seed`` + its index (a one-layer model),
+    laid out, its blocks copied and the whole freed; the other weights from
+    the first layer's build. A model too large for one card is never whole
+    on one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models import api
+    from repro_torch.models.sharding import distribute, rules_for
+
+    rules = rules_for(cfg.family)
+    model = api.init_params(cfg, None, "meta", max_seq=max_seq)
+    logical = api.param_logical(cfg, model)
+    one = dataclasses.replace(cfg, n_layers=1)
+    for i in range(cfg.n_layers):
+        part = api.init_params(one, seed + i, dev, max_seq=max_seq)
+        for name, t in part.named_parameters():
+            if name.startswith("layers.0."):
+                name = f"layers.{i}." + name[len("layers.0."):]
+            elif i:
+                continue
+            d = distribute(t.data, logical[name], rules, mesh)
+            d = DTensor.from_local(d.to_local().clone(), mesh, d.placements, run_check=False,
+                                   shape=d.shape, stride=d.stride())
+            owner, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(owner) if owner else model
+            mod._parameters[leaf] = torch.nn.Parameter(d, requires_grad=False)
+        del part
+        torch.cuda.empty_cache()
+    return model
+
+
+def _multi_card_moe_worker(rank: int, n: int, store: str, out_path: str) -> None:
+    """One process of the (1, n) MULTI_CARD_MOE prefill: the logits rows of
+    the kernel path, the rounding reference and the control against the
+    plain path (all on the plain path's routes), the kernel path's with its
+    own routes, the collectives ``CommDebugMode`` saw on the kernel path and
+    this card's peak bytes."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import init_local_group
+    from repro_torch.launch.steps import shard_batch
+    from repro_torch.models import api
+    from repro_torch.models.common import KERNELS, PLAIN
+    from repro_torch.models.sharding import rules_for, sharded
+
+    torch.cuda.set_device(rank)
+    init_local_group(rank, n, "nccl", path=store)
+    mesh = init_device_mesh("cuda", (1, n), mesh_dim_names=("data", "model"))
+    arch, b, p = MULTI_CARD_MOE
+    cfg = get_config(arch)
+    dev = torch.device("cuda", rank)
+    rules = rules_for(cfg.family)
+    t0 = time.perf_counter()
+    model = sharded_by_layer(cfg, mesh, dev, p)
+    build_s = time.perf_counter() - t0
+    batch = shard_batch(cfg, {"tokens": _tokens(cfg, b, p, dev, b * 7919 + p)}, mesh)
+    control = dataclasses.replace(PLAIN, attention=_scaled_attention(ZOO_CONTROL, 64),
+                                  rmsnorm=_scaled_rmsnorm(ZOO_CONTROL, 64))
+    pin = RoutePin(model)
+
+    def prefill(kernels):
+        """The prefill's logits, a DTensor (gathered by the caller, outside
+        any count of collectives)."""
+        with implicit_replication():
+            logits, _ = api.prefill(cfg, model, batch, p, sharded(kernels, rules))
+        if not bool(torch.isfinite(logits.to_local()).all()):
+            raise AssertionError(f"{arch} over {n} cards: logits not finite")
+        return logits
+
+    with pin.record():
+        plain = prefill(PLAIN).full_tensor()
+    rows = {}
+    for name, ks in (("rounding", rounding_reference(dev)), ("control", control)):
+        with pin.replay():
+            rows[name] = _row_rel(prefill(ks).full_tensor(), plain).cpu()
+    rows["kernel_own_routes"] = _row_rel(prefill(KERNELS).full_tensor(), plain).cpu()
+    # last: CommDebugMode leaves forward hooks on the modules it saw
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CommDebugMode() as comm, pin.replay():
+        got = prefill(KERNELS)
+    torch.cuda.synchronize(dev)
+    peak = torch.tensor([torch.cuda.max_memory_allocated(dev)], device=dev)
+    rows["kernel"] = _row_rel(got.full_tensor(), plain).cpu()
+    peaks = [torch.zeros_like(peak) for _ in range(n)]
+    torch.distributed.all_gather(peaks, peak)
+    if rank == 0:
+        torch.save({"rows": rows, "comm": _comm_kinds(comm.get_comm_counts()),
+                    "peaks": [int(x) for x in peaks], "build_s": build_s,
+                    "held_bytes": sum(t.to_local().numel() * t.element_size()
+                                      for t in model.parameters())}, out_path)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def multi_card_moe(n: int, workdir: Path) -> dict:
+    """MULTI_CARD_MOE's prefill whole (every layer) on a (1, n) mesh of n
+    cards in n processes, the experts split over "model": the kernel path's
+    logits rows within twice the rounding reference's largest reading of the
+    plain path, the control above that limit in every row (all on the plain
+    path's routes, :class:`RoutePin`); the collectives ``CommDebugMode``
+    saw, each kind as many as the count on a (1, n) ``fake`` mesh gives,
+    all-to-alls among them; each card's peak beside the counted bytes."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import count_mesh
+    from repro_torch.launch.steps import build_cell
+
+    arch, b, p = MULTI_CARD_MOE
+    cfg = get_config(arch)
+    fake = count_mesh((1, n), ("data", "model"))
+    _, stats = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), "meta",
+                          mesh=fake).count()
+    torch.distributed.destroy_process_group()
+    workdir.mkdir(parents=True, exist_ok=True)
+    store, out_path = workdir / "store_moe", workdir / "multi_card_moe.pt"
+    for f in (store, out_path):
+        f.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_multi_card_moe_worker, args=(n, str(store), str(out_path)), nprocs=n,
+                       start_method="spawn", join=True)
+    res = torch.load(out_path)
+    rows = {k: [float(v.min()), float(v.max())] for k, v in res["rows"].items()}
+    limit = 2 * rows["rounding"][1]
+    line = {"arch": arch, "layers": cfg.n_layers, "cards": n, "prefill": [b, p],
+            "seconds": time.perf_counter() - t0, "build_s": res["build_s"], "rows": rows,
+            "limit": limit, "limit_rule": "2 x the rounding reference's largest row",
+            "control": f"plain path, RMSNorm and attention x (1 + {ZOO_CONTROL}) past "
+                       "position 64 of each block",
+            "routes": "every path replays the plain path's routes; kernel_own_routes its own",
+            "collectives": res["comm"], "counted_collectives": stats.coll_count_by_kind,
+            "counted_collective_bytes": stats.coll_bytes_by_kind,
+            "card_peak_bytes": res["peaks"], "counted_peak_bytes": stats.peak_bytes,
+            "held_parameter_bytes_card0": res["held_bytes"],
+            "counted_argument_bytes": stats.argument_bytes}
+    if rows["kernel"][1] > limit:
+        raise AssertionError(f"{arch} over {n} cards: kernel path {rows['kernel']} > {limit}")
+    if rows["control"][0] <= limit:
+        raise AssertionError(f"{arch} over {n} cards: the control passed ({rows['control']} "
+                             f"within {limit}): the check does not discriminate")
+    if res["comm"] != stats.coll_count_by_kind or not res["comm"].get("all-to-all"):
+        raise AssertionError(f"{arch} over {n} cards: CommDebugMode saw {res['comm']}, the "
+                             f"count {stats.coll_count_by_kind}")
+    return line
 
 
 def multi_card_prefill(cfg, one_card_logits, n: int, workdir: Path) -> dict:
@@ -4184,7 +4429,9 @@ def sharded_dryrun(run: ShardedDryrun, one_card: Path) -> dict:
                                  f"{r['roofline']}")
         mem = r["memory"]
         table[name] = {"gb": (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]) / 1e9,
-                       "flops": flops, "collective_gb": r["collective_bytes_total"] / 1e9,
+                       "flops": flops,
+                       "flops_x_chips_over_one_card": flops * n / one["cost_analysis"]["flops"],
+                       "collective_gb": r["collective_bytes_total"] / 1e9,
                        "dominant": r["dominant"], "fits": r["fits"],
                        "count_s": r["t_compile_s"]}
     return {"seconds": seconds, "cpus": len(run.cpus), "records": len(recs),
@@ -4236,12 +4483,33 @@ def sharded_path(dev, workdir: Path, counting: ShardedDryrun) -> dict:
                              f"step_launches {want}")
     one_card_logits = whole["logits"][0]
     del got, whole, got_train, whole_train
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the MoE prefill through the bundle's experts, whole and on the mesh
+    mcfg = get_config(SHARDED_MOE[0])
+    moe_launches = []
+    for m in (None, mesh):
+        for fn in counters.values():
+            fn.launches = 0
+        moe_out = sharded_prefill(mcfg, dev, m, *SHARDED_MOE[1:])
+        moe_launches.append({k: fn.launches for k, fn in counters.items()})
+        if m is None:
+            moe_whole = moe_out
+    compared += _bitwise("moe_prefill", moe_out, moe_whole)
+    if moe_launches[0] != moe_launches[1] or not all(
+            moe_launches[0][k] for k in ("rmsnorm", "flash_attention")):
+        raise AssertionError(f"sharded MoE prefill launches {moe_launches[1]}, unsharded "
+                             f"{moe_launches[0]}")
+    del moe_out, moe_whole
+    # the phase's path: the sharded cells, the MoE prefill's among them
+    launches = {k: n + moe_launches[1][k] for k, n in launches.items()}
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     line = {"phase": "sharded", "torch": torch.__version__, "mesh": [1, 1],
             "backend": "nccl", "prefill": [b, p], "decode_steps": SHARDED_DECODE_STEPS,
-            "train": list(SHARDED_TRAIN), "bitwise_tensors": compared,
+            "train": list(SHARDED_TRAIN), "moe_prefill": list(SHARDED_MOE),
+            "moe_prefill_launches": moe_launches[1], "bitwise_tensors": compared,
             "launches": launches, "main_path_s": main_s}
     n = torch.cuda.device_count()
     if n >= 2:
@@ -4376,9 +4644,15 @@ def multi_card_main() -> int:
     one = sharded_serving(cfg, dev, None)["logits"][0]
     gc.collect()
     torch.cuda.empty_cache()
-    line = multi_card_prefill(cfg, one, torch.cuda.device_count(), ROOT / "build" / "sharded")
-    print(nvidia_smi(), flush=True)
+    n = torch.cuda.device_count()
+    line = multi_card_prefill(cfg, one, n, ROOT / "build" / "sharded")
     emit({"phase": "sharded_multi_card", "torch": torch.__version__, **line})
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = multi_card_moe(n, ROOT / "build" / "sharded")
+    print(nvidia_smi(), flush=True)
+    emit({"phase": "sharded_multi_card_moe", "torch": torch.__version__, **moe})
     return 0
 
 

@@ -67,7 +67,7 @@ _SIGNATURES = {
     "conv_window_launch": ([_P] * 8 + [_I, _P], _I),
     "conv_window_frame_launch": ([_P] * 3 + [_I] * 3 + [_P], _I),
     "rmsnorm_launch": ([_P] * 3 + [_I, _I, ctypes.c_float, _I, _P], _I),
-    "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _I, _P], _I),
+    "flash_attention_launch": ([_P] * 4 + [_I] * 5 + [ctypes.c_float, _I, _I, _I, _P], _I),
     "mlstm_chunk_scratch_floats": ([_I] * 3, ctypes.c_longlong),
     "mlstm_chunk_launch": ([_P] * 10 + [_I] * 5 + [_P], _I),
 }

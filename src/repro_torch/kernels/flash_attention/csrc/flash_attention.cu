@@ -8,7 +8,9 @@
 //   contiguous.
 // Semantics as there: scores s = (q . k) * hd^-0.5 in float32; causal mask
 // on absolute positions counted from 0 on both sides (key j is visible to
-// query i iff j <= i), masked scores -1e30; running max m, running sum l of
+// query i iff j <= i; for rows that are a block of a longer sequence from
+// position q_start on, iff j <= q_start + i),
+// masked scores -1e30; running max m, running sum l of
 // the float32 probabilities, and a float32 accumulator; the probabilities
 // are rounded to v's type before the PV product; o = acc / max(l, 1e-30).
 // Unlike the Pallas wrapper, any Sq and Sk: the ragged tail is masked.
@@ -157,7 +159,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int sq, int sk, int g,
-    float scale_log2, int causal) {
+    float scale_log2, int causal, int q_start) {
   constexpr int kSteps = HD / 16;   // k-steps of QKᵀ
   constexpr int kOut = HD / 8;      // n-tiles of the output
   constexpr int kKeyTiles = kBK / 8;  // n-tiles of S
@@ -179,14 +181,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
   // rows past the end read q = 0 and are never stored.
   const int la = warp * 16 + gq, lb = la + 8;
   const bool live_a = la < n_live, live_b = lb < n_live;
-  const int pos_a = live_a ? static_cast<int>((r0 + la) / g) : 0x7fffffff;
-  const int pos_b = live_b ? static_cast<int>((r0 + lb) / g) : 0x7fffffff;
-  const int first_pos = static_cast<int>(r0 / g);
+  const int pos_a = live_a ? q_start + static_cast<int>((r0 + la) / g) : 0x7fffffff;
+  const int pos_b = live_b ? q_start + static_cast<int>((r0 + lb) / g) : 0x7fffffff;
+  const int first_pos = q_start + static_cast<int>(r0 / g);
   int last_key = sk - 1;
-  if (causal) last_key = min(last_key, static_cast<int>((r0 + n_live - 1) / g));
+  if (causal) last_key = min(last_key, q_start + static_cast<int>((r0 + n_live - 1) / g));
   const int n_tiles = last_key / kBK + 1;
   // The warp's last live position: tiles wholly above it are all masked.
-  const int warp_last = static_cast<int>(
+  const int warp_last = q_start + static_cast<int>(
       (r0 + min(warp * 16 + 15, max(n_live - 1, 0))) / g);
 
   load_tile<HD>(smem, smem + TL::kElems, kb, vb, 0, sk);
@@ -335,7 +337,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_mma_kernel(
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bkv, int sq, int sk, int g,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int q_start, cudaStream_t stream) {
   const long long tiles = (static_cast<long long>(sq) * g + kRows - 1) / kRows;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static bool opted[kMaxDevices] = {};
@@ -345,7 +347,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bkv, int sq
   flash_mma_kernel<HD><<<grid, kThreads, Tile<HD>::kBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, sk, g,
-      scale * kLog2e, causal);
+      scale * kLog2e, causal, q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -384,7 +386,7 @@ struct Smem {  // sizes in floats
 template <int HD>
 __global__ void __launch_bounds__(kWarps * 32) flash_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int sq, int sk, int g, float scale, int causal) {
+    float* __restrict__ o, int sq, int sk, int g, float scale, int causal, int q_start) {
   constexpr int kCols = HD / 32;  // output columns per lane
   using S = Smem<HD>;
   extern __shared__ __align__(16) float smem[];
@@ -409,10 +411,10 @@ __global__ void __launch_bounds__(kWarps * 32) flash_f32_kernel(
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp * kRowsPerWarp + i;
-    qpos[i] = r < n_live ? static_cast<int>((r0 + r) / g) : -1;
+    qpos[i] = r < n_live ? q_start + static_cast<int>((r0 + r) / g) : -1;
   }
   int last_key = sk - 1;
-  if (causal) last_key = min(last_key, static_cast<int>((r0 + n_live - 1) / g));
+  if (causal) last_key = min(last_key, q_start + static_cast<int>((r0 + n_live - 1) / g));
   const int n_tiles = last_key / kBK + 1;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kCols];
@@ -523,7 +525,7 @@ __global__ void __launch_bounds__(kWarps * 32) flash_f32_kernel(
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int bkv, int sq, int sk, int g,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int q_start, cudaStream_t stream) {
   const long long tiles = (static_cast<long long>(sq) * g + kRows - 1) / kRows;
   if (tiles > 0x7fffffffLL || bkv > 65535) return static_cast<int>(cudaErrorInvalidValue);
   static bool opted[kMaxDevices] = {};
@@ -532,7 +534,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int bkv, int sq
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(bkv));
   flash_f32_kernel<HD><<<grid, kWarps * 32, Smem<HD>::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sq, sk, g, scale, causal);
+      static_cast<float*>(o), sq, sk, g, scale, causal, q_start);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -541,17 +543,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int bkv, int sq
 }  // namespace
 
 // dtype: 0 = float32 (hd 64 or 128), 1 = bfloat16 (hd 64, 112 or 128).
-// Returns a cudaError_t (0 on a clean launch).
-extern "C" int flash_attention_launch(const void* q, const void* k, const void* v,
-                                      void* o, int bkv, int sq, int sk, int g, int hd,
-                                      float scale, int causal, int dtype, void* stream) {
-  if (bkv < 1 || sq < 1 || sk < 1 || g < 1) return static_cast<int>(cudaErrorInvalidValue);
+// Causal rows may be a block of a longer sequence from query position
+// q_start on: query row i sees the keys at positions <= q_start + i
+// (q_start 0: the rows from position 0). Returns a cudaError_t (0 on a
+// clean launch).
+extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
+                                      int bkv, int sq, int sk, int g, int hd, float scale,
+                                      int causal, int q_start, int dtype, void* stream) {
+  if (bkv < 1 || sq < 1 || sk < 1 || g < 1 || q_start < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int c = causal != 0;
-  if (dtype == 0 && hd == 64) return f32::launch<64>(q, k, v, o, bkv, sq, sk, g, scale, c, s);
-  if (dtype == 0 && hd == 128) return f32::launch<128>(q, k, v, o, bkv, sq, sk, g, scale, c, s);
-  if (dtype == 1 && hd == 64) return tc::launch<64>(q, k, v, o, bkv, sq, sk, g, scale, c, s);
-  if (dtype == 1 && hd == 112) return tc::launch<112>(q, k, v, o, bkv, sq, sk, g, scale, c, s);
-  if (dtype == 1 && hd == 128) return tc::launch<128>(q, k, v, o, bkv, sq, sk, g, scale, c, s);
+  const int c = causal != 0, q0 = q_start;
+  if (dtype == 0 && hd == 64) return f32::launch<64>(q, k, v, o, bkv, sq, sk, g, scale, c, q0, s);
+  if (dtype == 0 && hd == 128)
+    return f32::launch<128>(q, k, v, o, bkv, sq, sk, g, scale, c, q0, s);
+  if (dtype == 1 && hd == 64) return tc::launch<64>(q, k, v, o, bkv, sq, sk, g, scale, c, q0, s);
+  if (dtype == 1 && hd == 112)
+    return tc::launch<112>(q, k, v, o, bkv, sq, sk, g, scale, c, q0, s);
+  if (dtype == 1 && hd == 128)
+    return tc::launch<128>(q, k, v, o, bkv, sq, sk, g, scale, c, q0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -24,10 +24,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                             causal: bool = True) -> torch.Tensor:
+                             causal: bool = True, q_start: int = 0) -> torch.Tensor:
     """q: [BKV, Sq, G, hd]; k, v: [BKV, Sk, hd], all bfloat16 or all float32
     on one card, hd in ``HEAD_DIMS[dtype]`` → o like q; the same contract as
-    :func:`.ref.attention_plain`. Any Sq and Sk ≥ 1."""
+    :func:`.ref.attention_plain`. Any Sq and Sk ≥ 1; causal query row i sees
+    the keys at positions ≤ ``q_start`` + i (``q_start`` ≥ 0)."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention_bkv_cuda needs CUDA tensors, got {dev}")
@@ -45,6 +46,8 @@ def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
                          + "; ".join(f"{t}: {dims}" for t, dims in HEAD_DIMS.items()))
     if sk < 1:
         raise ValueError("attention over zero keys")
+    if q_start < 0:
+        raise ValueError(f"q_start must be >= 0, got {q_start}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != q.dtype:
             raise TypeError(f"{name}: expected {q.dtype}, got {t.dtype}")
@@ -61,7 +64,7 @@ def flash_attention_bkv_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     with torch.cuda.device(dev):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bkv, sq, sk, g, hd,
-            hd ** -0.5, int(causal), _DTYPES[q.dtype],
+            hd ** -0.5, int(causal), int(q_start), _DTYPES[q.dtype],
             torch.cuda.current_stream(dev).cuda_stream,
         )
         check(lib, rc, "flash_attention launch")

@@ -48,10 +48,12 @@ def _check_heads(q, k) -> None:
                          f"{k.shape[2]} KV heads")
 
 
-def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, q_start: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, hd]; k, v: [B, Sk, KV, hd] on q's device (tensors, or
     numpy for the CPU) → [B, Sq, H, hd] in q's dtype, on q's device. H must
-    be a multiple of KV (GQA)."""
+    be a multiple of KV (GQA). Causal query row i sees the keys at positions
+    ≤ ``q_start`` + i: q is then the rows of a longer sequence from
+    ``q_start`` on, k and v that sequence whole."""
     q, k, v = (torch.as_tensor(t) for t in (q, k, v))
     _check_heads(q, k)
     if q.is_cuda and torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -59,30 +61,33 @@ def flash_attention(q, k, v, *, causal: bool = True) -> torch.Tensor:
                            "requires grad (run the plain version, models.common.PLAIN)")
     qg, kg, vg = to_bkv(q, k, v)
     run = flash_attention_bkv_cuda if q.is_cuda else attention_plain
-    return from_bkv(run(qg, kg, vg, causal=causal), q.shape[0])
+    return from_bkv(run(qg, kg, vg, causal=causal, q_start=q_start), q.shape[0])
 
 
-def _visible_pairs(sq: int, sk: int, causal: bool) -> int:
-    """(query, key) pairs the mask leaves, positions counted from 0 on both
-    sides: Σ_i min(i + 1, sk) when causal, else sq·sk."""
+def _visible_pairs(sq: int, sk: int, causal: bool, q_start: int = 0) -> int:
+    """(query, key) pairs the mask leaves, the keys' positions counted from
+    0 and the queries' from ``q_start``: Σ_i min(q_start + i + 1, sk) when
+    causal, else sq·sk."""
     if not causal:
         return sq * sk
-    if sq <= sk:
-        return sq * (sq + 1) // 2
-    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+    def tri(n):  # Σ_{i < n} min(i + 1, sk)
+        return n * (n + 1) // 2 if n <= sk else sk * (sk + 1) // 2 + (n - sk) * sk
+
+    return tri(q_start + sq) - tri(q_start)
 
 
 def work(b: int, sq: int, sk: int, h: int, kv: int, hd: int, causal: bool,
-         elt: int) -> Work:
+         elt: int, q_start: int = 0) -> Work:
     """One call: the plain version's two products over every (query, key)
     pair, 2·2·B·H·Sq·Sk·hd (the mask applies after q·kᵀ); q and k, v read
     once and o written once; the operations the visible pairs need."""
     return Work(flops=4 * b * h * sq * sk * hd,
                 bytes=(2 * b * sq * h + 2 * b * sk * kv) * hd * elt,
-                ops=4 * b * h * _visible_pairs(sq, sk, causal) * hd)
+                ops=4 * b * h * _visible_pairs(sq, sk, causal, q_start) * hd)
 
 
-def flash_attention_counted(q, k, v, *, causal: bool = True) -> torch.Tensor:
+def flash_attention_counted(q, k, v, *, causal: bool = True, q_start: int = 0) -> torch.Tensor:
     """The kernel's stand-in on ``meta``: adds :func:`work` to the open
     count and returns an empty [B, Sq, H, hd] in q's dtype, through the
     wrapper's own layout copies."""
@@ -90,6 +95,6 @@ def flash_attention_counted(q, k, v, *, causal: bool = True) -> torch.Tensor:
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     add_work("flash_attention", (q, k, v), work(b, sq, sk, h, kv, hd, causal,
-                                                q.element_size()))
+                                                q.element_size(), q_start))
     qg, _, _ = to_bkv(q, k, v)
     return from_bkv(torch.empty_like(qg), b)

@@ -84,12 +84,20 @@ def _write_at(cache, pos, new) -> None:
     cache.index_copy_(1, pos.view(1), new)
 
 
-def _whole(fn, module, *args, means=()):
+def _whole(fn, module, *args, means=(), weights=None):
     return fn(*args)
 
 
 def _decode_attention(fn, q, cache_k, cache_v, visible):
     return fn(q, cache_k, cache_v, visible)
+
+
+def _experts(moe, x, means: bool = False):
+    return moe._block(x, means)
+
+
+def _ssd(cell, x, state=None, decode: bool = False):
+    return cell.decode(x, state) if decode else cell(x, state)
 
 
 def _cross_entropy(logits, labels) -> torch.Tensor:
@@ -103,8 +111,10 @@ class Kernels:
     """The model's kernel-backed functions, swapped together, and the
     operations whose layout a mesh decides.
 
-    ``rmsnorm(x, w, eps)`` → like x; ``attention(q, k, v, causal)`` in the
-    model layout ``[B, S, H, hd]`` / ``[B, S, KV, hd]``; ``mlstm(q, k, v,
+    ``rmsnorm(x, w, eps)`` → like x; ``attention(q, k, v, causal,
+    q_start=0)`` in the model layout ``[B, S, H, hd]`` / ``[B, S, KV, hd]``
+    (q the rows from position ``q_start`` on of a sequence k and v hold
+    whole); ``mlstm(q, k, v,
     i_pre, f_pre)`` → (y, (C, n, m)), the chunked mLSTM cell from the zero
     state in the layout of :func:`..kernels.mlstm_chunk.ops.mlstm_cell`.
     :data:`KERNELS`
@@ -127,9 +137,14 @@ class Kernels:
     axes); ``write_prefix(cache, i, kv)`` is ``cache[i, :, :S] = kv``,
     ``write_at(cache, pos, new)`` is ``cache[:, pos] = new[:, 0]`` in place;
     ``cross_entropy(logits, labels)`` is :func:`softmax_cross_entropy`;
-    ``local(fn, module, *args, means=())`` is ``fn(*args)`` (on a mesh, on
-    each device's batch block); ``decode_attention(fn, q, cache_k, cache_v,
-    visible)`` is ``fn(q, cache_k, cache_v, visible)``.
+    ``local(fn, module, *args, means=(), weights=None)`` is ``fn(*args)`` (on
+    a mesh, on each device's batch block, ``module``'s parameters named in
+    ``weights`` gathered whole, all of them by default); ``decode_attention(fn, q, cache_k, cache_v,
+    visible)`` is ``fn(q, cache_k, cache_v, visible)``; ``experts(moe, x,
+    means=False)`` is the MoE block ``moe._block(x, means)`` (on a mesh,
+    each device its own experts); ``ssd(cell, x, state=None, decode=False)``
+    is the Mamba2 cell's prefill ``cell(x, state)`` or step ``cell.decode(x,
+    state)`` (on a mesh, each device its heads).
     """
 
     rmsnorm: Callable[[torch.Tensor, torch.Tensor, float], torch.Tensor]
@@ -146,22 +161,25 @@ class Kernels:
     cross_entropy: Callable = _cross_entropy
     local: Callable = _whole
     decode_attention: Callable = _decode_attention
+    experts: Callable = _experts
+    ssd: Callable = _ssd
 
 
-def _kernel_attention(q, k, v, causal):
-    return attention_ops.flash_attention(q, k, v, causal=causal)
+def _kernel_attention(q, k, v, causal, q_start=0):
+    return attention_ops.flash_attention(q, k, v, causal=causal, q_start=q_start)
 
 
-def _plain_attention(q, k, v, causal):
-    return from_bkv(attention_plain(*to_bkv(q, k, v), causal=causal), q.shape[0])
+def _plain_attention(q, k, v, causal, q_start=0):
+    return from_bkv(attention_plain(*to_bkv(q, k, v), causal=causal, q_start=q_start),
+                    q.shape[0])
 
 
 def _plain_mlstm(q, k, v, i_pre, f_pre):
     return mlstm_ops.in_model_layout(mlstm_chunk_plain, q, k, v, i_pre, f_pre)
 
 
-def _counted_attention(q, k, v, causal):
-    return attention_ops.flash_attention_counted(q, k, v, causal=causal)
+def _counted_attention(q, k, v, causal, q_start=0):
+    return attention_ops.flash_attention_counted(q, k, v, causal=causal, q_start=q_start)
 
 
 KERNELS = Kernels(rmsnorm=rmsnorm_ops.rmsnorm, attention=_kernel_attention,

@@ -203,7 +203,7 @@ def encdec_prefill(cfg, model: EncDecLM, tokens, audio, max_seq: int,
     cache = kernels.new_cache(encdec_cache_shape(cfg, tokens.shape[0], max_seq), tokens,
                               encdec_cache_logical())
     x = _decoder(cfg, model, tokens, audio, kernels, cache)
-    return model.dec_ln(x[:, -1:]) @ model.head, cache
+    return kernels.matmul(model.dec_ln(x[:, -1:]), model.head), cache
 
 
 def encdec_decode_step(cfg, model: EncDecLM, cache, token, pos, kernels: Kernels = KERNELS):
@@ -215,4 +215,4 @@ def encdec_decode_step(cfg, model: EncDecLM, cache, token, pos, kernels: Kernels
     for i, layer in enumerate(model.dec):
         x = layer.decode(x, cache["k"][i], cache["v"][i], cache["cross_k"][i],
                          cache["cross_v"][i], pos, kernels)
-    return model.dec_ln(x) @ model.head, cache
+    return kernels.matmul(model.dec_ln(x), model.head), cache

@@ -33,7 +33,8 @@ from torch import nn
 
 from .common import COMPUTE_DTYPE, KERNELS, Kernels, dense_init, frozen
 
-__all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing", "load_balance_loss"]
+__all__ = ["MoE", "init_moe", "moe_capacity", "route", "Routing", "load_balance_loss",
+           "slot_rows", "expert_ffn", "combine", "balance_means", "GROUP_SIZE"]
 
 GROUP_SIZE = 1024
 
@@ -105,8 +106,11 @@ class MoE(nn.Module):
 
     def routing(self, x: torch.Tensor) -> Routing:
         """x [B, S, d] → the routing of its token groups."""
+        return self.route_probs(self.router_probs(x))
+
+    def route_probs(self, probs: torch.Tensor) -> Routing:
+        """The routing of router probabilities [G, group, E] (float32)."""
         m = self.cfg.moe
-        probs = self.router_probs(x)
         return route(probs, m.top_k, moe_capacity(m, probs.shape[1]))
 
     def forward(self, x: torch.Tensor, with_aux: bool = False, kernels: Kernels = KERNELS):
@@ -114,13 +118,15 @@ class MoE(nn.Module):
         load-balance loss of the router probabilities, computed again from
         x, and the routing's choices).
 
-        The block runs through ``kernels.local``: on a mesh, on each
-        device's batch block with the experts gathered whole; the
-        load-balance loss then takes the two means it multiplies over every
-        block, as one device takes them over the whole batch."""
+        The block runs through ``kernels.experts``: on a mesh that splits
+        the experts, each device computes its own experts' slots, the
+        tokens exchanged by all-to-all (``sharding.py``); on a mesh that
+        does not, on each device's batch block with the experts gathered
+        whole. The load-balance loss takes the two means it multiplies over
+        every block, as one device takes them over the whole batch."""
         if not with_aux:
-            return kernels.local(self._block, self, x)
-        y, means = kernels.local(lambda x_: self._block(x_, means=True), self, x, means=(1,))
+            return kernels.experts(self, x)
+        y, means = kernels.experts(self, x, means=True)
         return y, self.cfg.moe.n_experts * (means[0] * means[1]).sum()
 
     def _block(self, x: torch.Tensor, means: bool = False):
@@ -129,25 +135,42 @@ class MoE(nn.Module):
         r = self.routing(x)
         g, t, k = r.sel.shape
         e, c = m.n_experts, moe_capacity(m, t)
-        # (expert, slot) row of each kept choice; dropped ones go to a spare
-        # row past the last, which the experts never read
-        row = torch.where(r.kept, r.sel * c + r.pos, torch.full_like(r.sel, e * c))
-        row = row.reshape(g, t * k)
+        row = slot_rows(r, e, c).reshape(g, t * k)
         xg = x.reshape(g, t, 1, d).expand(g, t, k, d).reshape(g, t * k, d)
         xe = x.new_zeros(g, e * c + 1, d)
         xe.scatter_(1, row[..., None].expand(g, t * k, d), xg)
         xe = xe[:, :e * c].reshape(g, e, c, d).transpose(0, 1).reshape(e, g * c, d)
-        h = F.silu((xe @ self.w1).to(torch.float32)).to(COMPUTE_DTYPE) * (xe @ self.w3)
-        ye = (h @ self.w2).reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
+        ye = expert_ffn(xe, self.w1, self.w3, self.w2)
+        ye = ye.reshape(e, g, c, d).transpose(0, 1).reshape(g, e * c, d)
         ye = torch.cat([ye, ye.new_zeros(g, 1, d)], dim=1)
         picked = torch.gather(ye, 1, row[..., None].expand(g, t * k, d)).reshape(g, t, k, d)
-        # repro's combine weights are the gates in float32 rounded to bf16
-        w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(COMPUTE_DTYPE)
-        y = (w.to(torch.float32)[..., None] * picked.to(torch.float32)).sum(dim=2)
-        y = y.to(COMPUTE_DTYPE).reshape(b, s, d)
+        y = combine(picked, r).reshape(b, s, d)
         if means:
             return y, torch.stack(balance_means(self.router_probs(x), r.sel))
         return y
+
+
+def slot_rows(r: Routing, n_experts: int, capacity: int) -> torch.Tensor:
+    """The (expert, slot) row e·C + pos of each kept choice, like ``r.sel``;
+    a dropped choice goes to the spare row E·C past the last, which the
+    experts never read."""
+    return torch.where(r.kept, r.sel * capacity + r.pos,
+                       torch.full_like(r.sel, n_experts * capacity))
+
+
+def expert_ffn(xe: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+    """Each expert's SwiGLU on its slots: xe [E, n, d] bf16 against w1 / w3
+    [E, d, ff] and w2 [E, ff, d] → [E, n, d] bf16."""
+    h = F.silu((xe @ w1).to(torch.float32)).to(COMPUTE_DTYPE) * (xe @ w3)
+    return h @ w2
+
+
+def combine(picked: torch.Tensor, r: Routing, dtype=COMPUTE_DTYPE) -> torch.Tensor:
+    """The experts' outputs of each choice, picked [..., k, d] bf16, summed
+    under the gates (zero where dropped) in float32 → [..., d] in ``dtype``:
+    ``repro``'s combine weights are the gates in float32 rounded to bf16."""
+    w = torch.where(r.kept, r.gate, torch.zeros_like(r.gate)).to(COMPUTE_DTYPE)
+    return (w.to(torch.float32)[..., None] * picked.to(torch.float32)).sum(dim=-2).to(dtype)
 
 
 def load_balance_loss(probs: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:

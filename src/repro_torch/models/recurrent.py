@@ -24,9 +24,10 @@ values are bfloat16 either way), so one static decode graph takes every
 cache.
 
 Under a mesh (``kernels.constrain`` lays out the residual stream at each
-block's output, ``repro``'s sites) the Mamba2 cells and the sLSTM run on
-each device's batch block (``kernels.local``), and the shared block lays
-out its q, k, v along the batch and ``kv_seq``, as ``repro`` does.
+block's output, ``repro``'s sites) the Mamba2 cells split their heads over
+a mesh axis the batch leaves free (``kernels.ssd``), the sLSTM recurrence
+runs on each device's batch block (``kernels.local``), and the shared block
+lays out its q, k, v along the batch and ``kv_seq``, as ``repro`` does.
 """
 
 from __future__ import annotations
@@ -210,13 +211,12 @@ class MambaBlock(nn.Module):
         self.cell = Mamba2(cfg, p["cell"])
 
     def forward(self, x, kernels: Kernels = KERNELS):
-        y, state = kernels.local(self.cell, self.cell,
-                                 rmsnorm(x, self.ln, self.cfg.norm_eps, kernels))
+        y, state = kernels.ssd(self.cell, rmsnorm(x, self.ln, self.cfg.norm_eps, kernels))
         return kernels.constrain(x + y), state
 
     def decode(self, x, state, kernels: Kernels = KERNELS):
-        y, state = kernels.local(self.cell.decode, self.cell,
-                                 rmsnorm(x, self.ln, self.cfg.norm_eps, kernels), state)
+        y, state = kernels.ssd(self.cell, rmsnorm(x, self.ln, self.cfg.norm_eps, kernels),
+                               state, decode=True)
         return kernels.constrain(x + y), state
 
 

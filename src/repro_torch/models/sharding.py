@@ -30,8 +30,15 @@ DTensor placements.
 for a model whose tensors are DTensors: each kernel under ``local_map`` on
 every device's block, ``repro``'s layout at its sites (``constrain``,
 ``layout``), and every operation whose layout the mesh decides (a product,
-the embedding, the cache writes, the cross-entropy, the blocks that run on
-each device's batch block). Every decision that depends on a layout, and
+the embedding, the cache writes, the cross-entropy, the MoE block's
+experts, the Mamba2 cell's heads, the blocks that run on each device's
+batch block). Where ``repro``'s partitioned HLO splits work over "model",
+so does the bundle: the experts (an all-to-all of the tokens), attention's
+query rows where the heads do not divide the axis, the Mamba2 state's
+heads, and a product whose weight and input are whole on an axis; where
+that HLO keeps work whole on each "model" device (the sLSTM recurrence),
+the bundle runs it on each device's batch block too
+(``tests/test_torch_sharding.py`` holds the two per device). Every decision that depends on a layout, and
 every limit of DTensor that it works round, lives here: the model code
 calls the bundle's fields and is the same with or without a mesh. Each
 field takes plain tensors as the plain code does (a block run locally
@@ -52,7 +59,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from .common import Kernels, softmax_cross_entropy
+from .common import COMPUTE_DTYPE, Kernels, softmax_cross_entropy
+from .ssm import CONV_K, Mamba2, mamba_dims
 
 __all__ = ["Rules", "rules_for", "mesh_axes", "logical_to_spec", "placements",
            "shard_shape", "shardings_for_tree", "constrain", "make_constrain", "is_dtensor",
@@ -294,7 +302,7 @@ class _swapped:
             mod._parameters[leaf] = p
 
 
-def run_local(fn, module, *args, means: Sequence[int] = ()):
+def run_local(fn, module, *args, means: Sequence[int] = (), weights=None):
     """``fn(*args)`` on each device's batch block, for a block of code whose
     ops DTensor cannot lay out (routing, a recurrence over positions).
 
@@ -307,7 +315,8 @@ def run_local(fn, module, *args, means: Sequence[int] = ()):
     the positions ``means``: each device's mean over its own block, which
     come back averaged over the batch shards (replicated once read).
     Without a DTensor in ``args`` this is ``fn(*args)``. Gradients of the
-    gathered parameters are summed over the batch shards."""
+    gathered parameters are summed over the batch shards. ``weights``: the
+    names of the only parameters ``fn`` reads (default: every one)."""
     x = _first_dtensor(args)
     if x is None:
         return fn(*args)
@@ -331,7 +340,8 @@ def run_local(fn, module, *args, means: Sequence[int] = ()):
 
     params = {} if module is None else {
         name: p.redistribute(mesh, rep).to_local(grad_placements=summed)
-        for name, p in module.named_parameters() if is_dtensor(p)}
+        for name, p in module.named_parameters()
+        if is_dtensor(p) and (weights is None or name in weights)}
     with _swapped(module, params):
         out = fn(*_tree_map(local, args))
 
@@ -415,34 +425,71 @@ def _split_ok(t, placements, dim: int) -> bool:
     return t.shape[dim] % n == 0
 
 
-def _sharded_attention(fn):
+def _sharded_attention(fn, row_axes: Sequence[str]):
     def call(q, k, v, causal):
         if not is_dtensor(q):
             return fn(q, k, v, causal)
-        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor import Partial, Replicate, Shard
 
         # a batch shard common to q, k and v stays; every other mesh axis
         # of more than one device splits the heads when it divides them,
-        # else q, k and v are whole there: a sequence shard (act_seq,
-        # kv_seq) or a partial sum is never passed in
+        # else, on an axis in ``row_axes``, splits q's rows (repro's
+        # act_seq; q's own sequence shard, or
+        # q whole there cut into blocks, the last ones short where the axis
+        # does not divide the sequence, as XLA pads): each device its query
+        # rows from its q_start against k and v whole; a key sequence shard
+        # or a partial sum is never passed in
         mesh = q.device_mesh
+        names, _ = mesh_axes(mesh)
         k, v = (t if is_dtensor(t) else _replicated(t, mesh) for t in (k, v))
         n_heads, n_kv = q.shape[2], k.shape[2]
-        want, split = [], 1
+        want, want_kv, split, rows = [], [], 1, []
         for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements, v.placements)):
             if pq.is_shard() and pq.dim == 0 and pq == pk == pv:
                 want.append(pq)
             elif mesh.size(i) > 1 and n_heads % (split * mesh.size(i)) == 0:
                 split *= mesh.size(i)
                 want.append(Shard(2))
+            elif (mesh.size(i) > 1 and not rows and names[i] in row_axes
+                  and (pq.is_replicate() or pq == Shard(1))):
+                rows.append(i)
+                want.append(Shard(1))
             else:
                 want.append(Replicate())
+            want_kv.append(Replicate() if i in rows else want[-1])
         if n_kv % split:
             # each device's query heads read a block of the key/value heads
             # only if those split too: else every query head gets its own copy
             k, v = (t.repeat_interleave(n_heads // n_kv, dim=2) for t in (k, v))
-        return _local(lambda q_, k_, v_: fn(q_, k_, v_, causal), want,
-                      (want, want, want), mesh)(q, k, v)
+        if not rows:
+            return _local(lambda q_, k_, v_: fn(q_, k_, v_, causal), want,
+                          (want, want, want), mesh)(q, k, v)
+        # this device's rows: ceil(S / n) from its first (the last ones short
+        # or empty where n does not divide S); k's and v's gradients are
+        # each device's partial sums over its rows
+        from torch.distributed.tensor import DTensor
+
+        (i,) = rows
+        n, seq = mesh.size(i), q.shape[1]
+        per = -(-seq // n)
+        first = min(mesh.get_local_rank(i) * per, seq)
+        kv_grad = [Partial() if j == i else p for j, p in enumerate(want_kv)]
+        kl, vl = (t.redistribute(mesh, want_kv).to_local(grad_placements=kv_grad)
+                  for t in (k, v))
+        if seq % n == 0:
+            ql = q.redistribute(mesh, want).to_local(grad_placements=want)
+            return DTensor.from_local(fn(ql, kl, vl, causal, q_start=first), mesh, want,
+                                      run_check=False)
+        # uneven: no DTensor block of another length; q whole there, each
+        # device its rows, the output gathered back whole (padded to n
+        # equal blocks), each device's gradient its own rows
+        whole = [Replicate() if j == i else p for j, p in enumerate(want)]
+        ql = q.redistribute(mesh, whole).to_local(
+            grad_placements=[Partial() if j == i else p for j, p in enumerate(whole)])
+        o = fn(ql.narrow(1, first, min(per, seq - first)), kl, vl, causal, q_start=first)
+        o = torch.nn.functional.pad(o, (0, 0, 0, 0, 0, per - o.shape[1]))
+        o = _Gather.apply(o.contiguous(), 1, mesh.get_group(i), True).narrow(1, 0, seq)
+        return DTensor.from_local(o.contiguous(), mesh, whole, run_check=False)
     return call
 
 
@@ -478,8 +525,52 @@ def _rows_local(x) -> bool:
     return bool(big) and (rows == big or any(x.placements[i].dim > 0 for i in rows))
 
 
-def _matmul(x, w) -> torch.Tensor:
-    """``x @ w`` (x [..., d], w [d, f]). Where :func:`_rows_local` holds, each
+def _split_free(x, w, free_axes: Sequence[str]):
+    """(x, w) for ``x @ w`` (x [..., d], w [d, f]) with the product split
+    over every mesh axis in ``free_axes`` (those ``repro``'s rules give the
+    features) of more than one device that holds both whole,
+    where no layout splits it and it would run whole on each of the axis'
+    devices: x's leading rows (the batch, else the sequence) where the axis
+    divides them, else w's output features where it divides them, else the
+    input features (the product a partial sum) where it divides those, else
+    the output features unevenly (as XLA pads); local splits, no
+    collective. For one position (a decode step), where x's rows are
+    split, w's input features are gathered there first."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x, w
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = w.device_mesh
+    names, _ = mesh_axes(mesh)
+    xp, wp, rows = list(x.placements), list(w.placements), 1
+    seq = any(p.is_shard() and p.dim == 1 for p in xp)
+    for i, p in enumerate(xp):
+        if p.is_shard() and p.dim == 0:
+            rows *= mesh.size(i)
+    for i in range(mesh.ndim):
+        if xp[i] == Shard(0) and wp[i] == Shard(0) and x.dim() > 2 and x.shape[1] == 1:
+            # one position: the weight's input features gathered where x's
+            # rows are split (FSDP), where DTensor would move the few rows
+            # into a split of the features and leave a partial sum
+            wp[i] = Replicate()
+        if (names[i] not in free_axes or mesh.size(i) == 1
+                or not (xp[i].is_replicate() and wp[i].is_replicate())):
+            continue
+        if x.dim() > 1 and x.shape[0] % (rows * mesh.size(i)) == 0:
+            rows *= mesh.size(i)
+            xp[i] = Shard(0)
+        elif x.dim() > 2 and not seq and x.shape[1] % mesh.size(i) == 0:
+            seq, xp[i] = True, Shard(1)
+        elif w.shape[-1] % mesh.size(i) and w.shape[0] % mesh.size(i) == 0:
+            xp[i], wp[i] = Shard(x.dim() - 1), Shard(0)   # a partial sum
+        else:
+            wp[i] = Shard(w.dim() - 1)
+    return x.redistribute(mesh, xp), w.redistribute(mesh, wp)
+
+
+def _matmul(x, w, free_axes: Sequence[str] = ()) -> torch.Tensor:
+    """``x @ w`` (x [..., d], w [d, f]), split by :func:`_split_free`
+    where no layout splits it. Where :func:`_rows_local` holds, each
     device takes its block of rows against the whole weight (gathered), the
     layout kept and each gradient handed back in it: a DTensor product
     would fold a split batch and sequence into one dim, which not every
@@ -487,6 +578,7 @@ def _matmul(x, w) -> torch.Tensor:
     the features, which a later view into heads may not take. The same
     products either way; the weight's gradient is each device's partial
     sum."""
+    x, w = _split_free(x, w, free_axes)
     if not _rows_local(x):
         return x @ w
     from torch.distributed.tensor import Partial
@@ -638,17 +730,337 @@ def _cross_entropy(logits, labels) -> torch.Tensor:
         mesh, [Replicate()] * mesh.ndim)
 
 
-def _decode_attention(fn, q, cache_k, cache_v, visible):
-    """One query position against a DTensor cache: on each device's batch
-    block (:func:`run_local`, the plain code on local tensors) unless a mesh
-    axis of more than one device splits the cache's sequence; then as
-    DTensor ops, the softmax's sums reduced across the split."""
-    seq_split = is_dtensor(cache_k) and any(
-        p.is_shard() and p.dim == 1 and cache_k.device_mesh.size(i) > 1
-        for i, p in enumerate(cache_k.placements))
-    if seq_split:
+def _decode_attention(fn, q, cache_k, cache_v, visible, free_axes: Sequence[str] = ()):
+    """One query position against a DTensor cache: where a mesh axis of more
+    than one device splits the cache's sequence, as DTensor ops, the
+    softmax's sums reduced across the split; else on each device's batch
+    block (:func:`run_local`, the plain code on local tensors). A mesh axis
+    in ``free_axes`` of more than one device that holds the cache and the
+    query whole (a cross cache) first takes the batch where it divides it,
+    else the cache's sequence (unevenly where it does not divide it, as XLA
+    pads): each device its block, no collective."""
+    if not is_dtensor(cache_k):
+        return run_local(fn, None, q, cache_k, cache_v, visible)
+    from torch.distributed.tensor import Shard
+
+    mesh = cache_k.device_mesh
+    if not is_dtensor(q):
+        q = _replicated(q, mesh)
+    qp, cp, rows = list(q.placements), list(cache_k.placements), 1
+    for i, p in enumerate(cp):
+        if p.is_shard() and p.dim == 1 and mesh.size(i) > 1:
+            return fn(q, cache_k, cache_v, visible)
+        if p.is_shard() and p.dim == 0:
+            rows *= mesh.size(i)
+    seq, names = False, mesh_axes(mesh)[0]
+    for i in range(mesh.ndim):
+        if (names[i] not in free_axes or mesh.size(i) == 1
+                or not (cp[i].is_replicate() and qp[i].is_replicate())):
+            continue
+        if q.shape[0] % (rows * mesh.size(i)) == 0:
+            rows *= mesh.size(i)
+            qp[i] = cp[i] = Shard(0)
+        elif not seq:
+            seq, cp[i] = True, Shard(1)
+    q = q.redistribute(mesh, qp)
+    cache_k, cache_v = (t.redistribute(mesh, cp) for t in (cache_k, cache_v))
+    if seq:
         return fn(q, cache_k, cache_v, visible)
     return run_local(fn, None, q, cache_k, cache_v, visible)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``t`` [n, ...] cut into its n blocks along dim 0, block i sent to rank
+    i of ``group``; block i of the result came from rank i. The gradient
+    goes back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_to_all(grad, ctx.group), None
+
+
+def _all_to_all(t, group):
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_to_all_single(t.contiguous(), None, None, group))
+
+
+class _Gather(torch.autograd.Function):
+    """``t``'s blocks along ``dim`` over ``group``, joined in rank order.
+    Its gradient: each rank's own block of the group's sum (a
+    reduce-scatter), the gradients being each rank's partial sums; with
+    ``whole`` (the gradient the same whole on every rank, as of a
+    replicated result), each rank's own block of it."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group, whole=False):
+        ctx.dim, ctx.group, ctx.whole = dim % t.dim(), group, whole
+        return _gathered(t, ctx.dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as funcol
+
+        if ctx.whole:
+            n = grad.shape[ctx.dim] // ctx.group.size()
+            rank = ctx.group.rank()
+            return grad.narrow(ctx.dim, rank * n, n), None, None, None
+        scatter = getattr(funcol, "reduce_scatter_single", None) or funcol.reduce_scatter_tensor
+        out = scatter(grad.contiguous(), "sum", ctx.dim, ctx.group)
+        return funcol.wait_tensor(out), None, None, None
+
+
+def _gathered(t, dim: int, group):
+    """``t``'s blocks along ``dim`` over ``group``, joined in rank order (no
+    gradient)."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    return funcol.wait_tensor(gather(t.detach().contiguous(), dim, group))
+
+
+def _experts(moe, x, means: bool = False):
+    """The MoE block (``moe.MoE._block``) on DTensors. Where a mesh axis of
+    more than one device splits the experts (``repro``'s "experts" →
+    "model"), each device computes only its own experts' slots
+    (:func:`_expert_parallel`); else the block runs on each device's batch
+    block with the experts gathered whole (:func:`run_local`). A plain
+    tensor runs the plain block."""
+    if not is_dtensor(x) or not is_dtensor(moe.w1):
+        return moe._block(x, means)
+    mesh = x.device_mesh
+    split = [i for i, p in enumerate(moe.w1.placements)
+             if p.is_shard() and p.dim == 0 and mesh.size(i) > 1]
+    if split:
+        return _expert_parallel(moe, x, split[0], means)
+    if means:
+        return run_local(lambda x_: moe._block(x_, means=True), moe, x, means=(1,))
+    return run_local(moe._block, moe, x)
+
+
+def _expert_parallel(moe, x, ep: int, means: bool):
+    """Expert parallelism over mesh dim ``ep``, ``repro``'s layout
+    (``repro/models/moe.py:78-88``). Each device keeps x's batch shards and,
+    on ``ep``, its sequence shard or the whole tokens. The routing is
+    ``repro``'s on whole token groups: the router probabilities of a
+    sequence shard are gathered over ``ep`` first, each device routes the
+    groups (top-k, queue positions) and keeps its own tokens' choices.
+
+    * tokens split over ``ep``: each device scatters its tokens into the
+      (expert, slot) rows of its groups, the rows go to their experts'
+      devices by one all-to-all (each slot holds one token, so the blocks
+      received add up to the slots' rows), each device runs its experts,
+      and a second all-to-all brings every expert's rows back, where each
+      device picks its own tokens' choices;
+    * tokens whole on ``ep``: each device takes its experts' slots from its
+      own tokens, and its combine, of its experts' choices only, is a
+      float32 partial sum over ``ep``.
+
+    The load-balance loss's means are each device's means over its own
+    tokens, averaged over the devices that split the tokens (a partial
+    sum). Gradients: each weight's local block gets its device's share,
+    summed over the batch shards; the experts' blocks stay split."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from .moe import (GROUP_SIZE, Routing, balance_means, combine, expert_ffn, moe_capacity,
+                      slot_rows)
+
+    m = moe.cfg.moe
+    mesh, group = x.device_mesh, x.device_mesh.get_group(ep)
+    n_ep, j = mesh.size(ep), mesh.get_local_rank(ep)
+    e, k, d = m.n_experts, m.top_k, x.shape[-1]
+    e_l, gsz = e // n_ep, min(GROUP_SIZE, x.shape[1])
+    pe = x.placements[ep]
+    tok = pe.dim if pe.is_shard() and pe.dim in (0, 1) and x.shape[pe.dim] % n_ep == 0 else None
+    batch = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == 0 and i != ep]
+    xp = [Shard(0) if i in batch else (Shard(tok) if i == ep and tok is not None else Replicate())
+          for i in range(mesh.ndim)]
+    parts = [i for i in range(mesh.ndim) if i in batch or i == ep]
+    summed = [Partial() if i in parts else Replicate() for i in range(mesh.ndim)]
+    xg = [Partial() if i == ep and tok is None else p for i, p in enumerate(xp)]
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=xg)
+    # the router's products split as the experts where the tokens are whole
+    cols = [Shard(1) if i == ep and tok is None else Replicate() for i in range(mesh.ndim)]
+    router = moe.router.redistribute(mesh, cols).to_local(
+        grad_placements=[Shard(1) if i == ep and tok is None else p
+                         for i, p in enumerate(summed)])
+    own = [Shard(0) if i == ep else Replicate() for i in range(mesh.ndim)]
+    w_grad = [Shard(0) if i == ep else p for i, p in enumerate(summed)]
+    w1, w3, w2 = (w.redistribute(mesh, own).to_local(grad_placements=w_grad)
+                  for w in (moe.w1, moe.w3, moe.w2))
+
+    def router_probs():
+        logits = xl @ router
+        if tok is None:
+            logits = _Gather.apply(logits, -1, group)
+        return torch.softmax(logits.to(torch.float32), dim=-1)
+
+    probs = router_probs()                                              # own tokens
+    rows = probs.detach() if tok is None else _gathered(probs, tok, group)
+    bb, ss = rows.shape[:2]
+    r = moe.route_probs(rows.reshape(bb * ss // gsz, gsz, e))
+    c = moe_capacity(m, gsz)
+    first = 0 if tok is None else j * xl.shape[tok]
+
+    def mine(t):  # own tokens' entries of a [G, group, ...] routing tensor
+        t = t.reshape(bb, ss, *t.shape[2:])
+        return t if tok is None else t.narrow(tok, first, xl.shape[tok])
+
+    sel, pos, kept = mine(r.sel), mine(r.pos), mine(r.kept)
+    gate = torch.gather(probs, -1, sel)
+    gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
+    ro = Routing(sel, gate, pos, kept)
+    groups = bb * ss // gsz
+    gidx = mine(torch.arange(bb * ss, device=xl.device).reshape(groups, gsz) // gsz)
+    flat = (gidx[..., None] * (e * c + 1) + slot_rows(ro, e, c)).reshape(-1)
+
+    src = xl[..., None, :].expand(*xl.shape[:-1], k, d).reshape(-1, d)
+    buf = xl.new_zeros(groups * (e * c + 1), d).scatter(0, flat[:, None].expand(-1, d), src)
+    buf = buf.view(groups, e * c + 1, d)[:, :e * c].reshape(groups, n_ep, e_l * c, d)
+    if tok is None:
+        xe = buf[:, j]
+    else:
+        xe = _AllToAll.apply(buf.transpose(0, 1), group).sum(dim=0)
+    xe = xe.reshape(groups, e_l, c, d).transpose(0, 1).reshape(e_l, groups * c, d)
+    ye = expert_ffn(xe, w1, w3, w2).reshape(e_l, groups, c, d).transpose(0, 1).reshape(
+        groups, 1, e_l * c, d)
+    if tok is None:
+        back = torch.nn.functional.pad(ye, (0, 0, 0, 0, j, n_ep - 1 - j))
+    else:
+        back = _AllToAll.apply(ye.transpose(0, 1).expand(n_ep, groups, e_l * c, d),
+                               group).transpose(0, 1)
+    back = torch.cat([back.reshape(groups, e * c, d), back.new_zeros(groups, 1, d)], dim=1)
+    picked = back.reshape(-1, d)[flat].reshape(*xl.shape[:-1], k, d)
+    if tok is None:
+        y32 = combine(picked, ro, torch.float32)
+        y = DTensor.from_local(y32, mesh, [Partial() if i == ep else p for i, p in enumerate(xp)],
+                               run_check=False).redistribute(mesh, xp).to(COMPUTE_DTYPE)
+    else:
+        y = DTensor.from_local(combine(picked, ro), mesh, xp, run_check=False)
+    if not means:
+        return y
+    n_parts = 1
+    for i in parts:
+        n_parts *= mesh.size(i)
+    # the router again, as the plain block takes it
+    local = torch.stack(balance_means(router_probs(), sel)) / n_parts
+    return y, DTensor.from_local(local, mesh, summed, run_check=False)
+
+
+def _ssd(cell, x, state=None, decode: bool = False, rules: Rules = None):
+    """The Mamba2 cell (``ssm.Mamba2``: its prefill, or with ``decode`` its
+    step) on DTensors. Where a mesh axis of more than one device holds x
+    whole and divides the heads, the state's width 2N and the chunk,
+    ``repro``'s split of the state's "feat" (the axes ``rules`` give it):
+    each device computes its heads (:func:`_ssd_heads`); else on each
+    device's batch block (:func:`run_local`). A plain tensor runs the plain
+    cell."""
+    run = cell.decode if decode else cell
+    if not is_dtensor(x):
+        return run(x, state)
+    from .ssm import mamba_chunk_len, mamba_dims
+
+    mesh = x.device_mesh
+    names, _ = mesh_axes(mesh)
+    _, H, _, N = mamba_dims(cell.cfg)
+    for i, p in enumerate(x.placements):
+        m = mesh.size(i)
+        if (names[i] in rules["feat"] and m > 1 and p.is_replicate() and H % m == 0
+                and 2 * N % m == 0
+                and (decode or mamba_chunk_len(x.shape[1]) % m == 0)):
+            return _ssd_heads(cell, x, state, decode, i)
+    return run_local(run, cell, x, state)
+
+
+class _MambaHeads:
+    """Heads [j·H/n, (j+1)·H/n) of a Mamba2 cell on plain tensors, ``w`` its
+    whole weights: ``ssm.Mamba2``'s prefill and step on this device's heads,
+    the output a partial sum over ``group`` (the out-projection's rows).
+    The B and C columns of the in-projection and the rows of the chunks'
+    C·Bᵀ are split over the group too and gathered (what no head owns)."""
+
+    forward = Mamba2.forward
+    decode = Mamba2.decode
+    _conv = Mamba2._conv
+    _discretize = Mamba2._discretize
+    _gate_out = Mamba2._gate_out
+
+    def __init__(self, cell, w, j: int, n: int, group):
+        d_in, H, P, N = mamba_dims(cell.cfg)
+        self.cfg, self.j, self.n, self.group = cell.cfg, j, n, group
+        self.d, self.h, self.P, self.N, self.d_in = d_in // n, H // n, P, N, d_in
+        d, h, bc = self.d, self.h, 2 * N // n
+        cols = torch.cat([torch.arange(j * d, (j + 1) * d), torch.arange(d_in + j * d,
+                                                                        d_in + (j + 1) * d),
+                          torch.arange(2 * d_in + 2 * N + j * h, 2 * d_in + 2 * N + (j + 1) * h)])
+        dev = w["in_proj"].device
+        self.w_own = w["in_proj"].index_select(1, cols.to(dev))
+        self.w_bc = w["in_proj"][:, 2 * d_in + j * bc:2 * d_in + (j + 1) * bc]
+        self.conv_w = torch.cat([w["conv_w"][:, j * d:(j + 1) * d], w["conv_w"][:, d_in:]], 1)
+        self.A_log, self.dt_bias, self.D = (w[k][j * h:(j + 1) * h]
+                                            for k in ("A_log", "dt_bias", "D"))
+        self.out_proj = w["out_proj"][j * d:(j + 1) * d]
+
+    def dims(self):
+        return self.d, self.h, self.P, self.N
+
+    def zero_state(self, batch: int, device):
+        f32 = dict(dtype=torch.float32, device=device)
+        return {"ssm": torch.zeros(batch, self.h, self.P, self.N, **f32),
+                "conv": torch.zeros(batch, CONV_K - 1, self.d + 2 * self.N, **f32)}
+
+    def _split_proj(self, x):
+        z, xs, dt = (x @ self.w_own).split([self.d, self.d, self.h], dim=-1)
+        return z, torch.cat([xs, _Gather.apply(x @ self.w_bc, -1, self.group)], -1), dt
+
+    def _cb(self, Cc, Bc):
+        rows = Cc.shape[2] // self.n
+        own = torch.einsum("bcin,bcjn->bcij", Cc.narrow(2, self.j * rows, rows), Bc)
+        return _Gather.apply(own, 2, self.group)
+
+    def own_conv(self, conv):
+        """A whole conv context [B, K − 1, d_in + 2N] → this block's columns."""
+        return torch.cat([conv[..., self.j * self.d:(self.j + 1) * self.d],
+                          conv[..., self.d_in:]], -1)
+
+    def whole_conv(self, conv):
+        """This block's conv context → the whole one (gathered, no gradient)."""
+        return torch.cat([_gathered(conv[..., :self.d], conv.dim() - 1, self.group),
+                          conv[..., self.d:]], -1)
+
+
+def _ssd_heads(cell, x, state, decode: bool, ax: int):
+    """:func:`_ssd` with the heads split over mesh dim ``ax``: x's batch
+    shards kept, the weights gathered whole and each device's heads taken
+    (every gradient that device's share, summed over the batch shards and
+    ``ax``), the state's heads in the cache's split; the output a partial
+    sum over ``ax``, the new state's heads split there."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    batch = [i for i, p in enumerate(x.placements) if p.is_shard() and p.dim == 0]
+    xp = [Shard(0) if i in batch else Replicate() for i in range(mesh.ndim)]
+    hp = [Shard(1) if i == ax else p for i, p in enumerate(xp)]
+    summed = [Partial() if i in batch or i == ax else Replicate() for i in range(mesh.ndim)]
+    xl = x.redistribute(mesh, xp).to_local(
+        grad_placements=[Partial() if i == ax else p for i, p in enumerate(xp)])
+    w = {name: p.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(grad_placements=summed)
+         for name, p in cell.named_parameters()}
+    view = _MambaHeads(cell, w, mesh.get_local_rank(ax), mesh.size(ax), mesh.get_group(ax))
+    st = None if state is None else {
+        "ssm": state["ssm"].redistribute(mesh, hp).to_local(),
+        "conv": view.own_conv(state["conv"].redistribute(mesh, xp).to_local())}
+    y, new = view.decode(xl, st) if decode else view.forward(xl, st)
+    return (DTensor.from_local(y, mesh, [Partial() if i == ax else p for i, p in enumerate(xp)],
+                               run_check=False),
+            {"ssm": DTensor.from_local(new["ssm"], mesh, hp, run_check=False),
+             "conv": DTensor.from_local(view.whole_conv(new["conv"]), mesh, xp,
+                                        run_check=False)})
 
 
 def sharded(kernels: Kernels, rules: Rules) -> Kernels:
@@ -659,17 +1071,22 @@ def sharded(kernels: Kernels, rules: Rules) -> Kernels:
     ``repro``'s sites, and the other fields take DTensors (module
     docstring). What each kernel takes: RMSNorm any layout but a sharded
     normalized dim; flash attention and the mLSTM shards of batch or heads
-    (common to all their inputs and dividing the heads), every other shard
-    gathered first. The launches inside see only local tensors, so on a
+    (common to all their inputs and dividing the heads), flash attention
+    also q's rows where the heads do not divide an axis of the rules'
+    "feat" (k and v whole, each device's rows from its ``q_start``), every
+    other shard gathered first. The products, the decode attention and the
+    Mamba2 cell split work over the "feat" axes where no layout does. The launches inside see only local tensors, so on a
     card they are the CUDA kernels on each block."""
     return Kernels(
         rmsnorm=_sharded_rmsnorm(kernels.rmsnorm),
-        attention=_sharded_attention(kernels.attention),
+        attention=_sharded_attention(kernels.attention, rules["feat"]),
         mlstm=_sharded_mlstm(kernels.mlstm),
         constrain=make_constrain(rules),
         layout=lambda x, *logical: constrain(x, rules, *logical),
-        matmul=_matmul, heads=_heads, embed=_embed,
+        matmul=lambda x, w: _matmul(x, w, rules["feat"]), heads=_heads, embed=_embed,
         new_cache=lambda shapes, like, logical, make=torch.zeros: _new_cache(
             shapes, like, logical, rules, make),
         write_prefix=_write_prefix, write_at=_write_at, cross_entropy=_cross_entropy,
-        local=run_local, decode_attention=_decode_attention)
+        local=run_local, experts=_experts,
+        decode_attention=lambda *a: _decode_attention(*a, free_axes=rules["feat"]),
+        ssd=lambda cell, x, state=None, decode=False: _ssd(cell, x, state, decode, rules))

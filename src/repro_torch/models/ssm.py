@@ -81,9 +81,22 @@ class Mamba2(nn.Module):
         for name in ("A_log", "dt_bias", "D"):
             setattr(self, name, frozen(p[name], PARAM_DTYPE))
 
+    def dims(self) -> Tuple[int, int, int, int]:
+        """(d_in, H, P, N) of the heads this block computes."""
+        return mamba_dims(self.cfg)
+
+    def zero_state(self, batch: int, device) -> State:
+        """:func:`mamba_init_state` for this block's heads."""
+        return mamba_init_state(self.cfg, batch, device)
+
     def _split_proj(self, x):
-        d_in, H, _, N = mamba_dims(self.cfg)
+        """x [..., d] → (z [..., d_in], xBC [..., d_in + 2N], dt [..., H])."""
+        d_in, H, _, N = self.dims()
         return (x @ self.in_proj).split([d_in, d_in + 2 * N, H], dim=-1)
+
+    def _cb(self, Cc, Bc):
+        """The intra-chunk C·Bᵀ over the state: [B, nc, L, N] × 2 → [B, nc, L, L]."""
+        return torch.einsum("bcin,bcjn->bcij", Cc, Bc)
 
     def _discretize(self, dt):
         """dt [..., H] → (log decay per step A·dt ≤ 0, effective dt), float32."""
@@ -107,12 +120,12 @@ class Mamba2(nn.Module):
     def forward(self, x, state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
         """Prefill: (y [B, S, d], final state) from ``state`` (zeros when
         None). S must be a multiple of ``CHUNK``, or at most ``CHUNK``."""
-        d_in, H, P, N = mamba_dims(self.cfg)
+        d_in, H, P, N = self.dims()
         b, s, _ = x.shape
         L = mamba_chunk_len(s)
         nc = s // L
         if state is None:
-            state = mamba_init_state(self.cfg, b, x.device)
+            state = self.zero_state(b, x.device)
         z, xbc, dt = self._split_proj(x)
         xbc, conv_state = self._conv(xbc, state["conv"])
         xs, Bm, Cm = xbc.split([d_in, N, N], dim=-1)
@@ -127,7 +140,7 @@ class Mamba2(nn.Module):
         causal = torch.ones(L, L, dtype=torch.bool, device=x.device).tril()
         # masked before the exp: the upper triangle's cum_i − cum_j > 0 overflows
         seg = seg.masked_fill(~causal[None, None, :, :, None], float("-inf"))
-        cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+        cb = self._cb(Cc, Bc)
         scores = cb[..., None] * torch.exp(seg) * dtc[:, :, None, :, :]
         y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores.to(COMPUTE_DTYPE), xc)
 
@@ -149,7 +162,7 @@ class Mamba2(nn.Module):
     def decode(self, x, state: State) -> Tuple[torch.Tensor, State]:
         """One token x [B, 1, d]: the single-step recurrence → (y [B, 1, d],
         the next state, float32 "ssm" and the bfloat16 trailing context)."""
-        d_in, H, P, N = mamba_dims(self.cfg)
+        d_in, H, P, N = self.dims()
         b = x.shape[0]
         z, xbc, dt = self._split_proj(x)
         xbc, conv_state = self._conv(xbc, state["conv"])

@@ -97,12 +97,9 @@ class MLSTMCell(nn.Module):
         return self._out(x, h, kernels), {"C": C, "n": n, "m": m}
 
     def decode(self, x, state: State, kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, State]:
-        """One token x [B, 1, d]: the exact recurrence step, in float32
-        (through ``kernels.local``: on a mesh, on each device's batch
-        block)."""
-        return kernels.local(lambda x_, s_: self._decode(x_, s_, kernels), self, x, state)
-
-    def _decode(self, x, state: State, kernels: Kernels) -> Tuple[torch.Tensor, State]:
+        """One token x [B, 1, d]: the exact recurrence step, in float32 (on
+        a mesh, in the state's layout: C's and n's key features split as
+        ``repro`` splits them, q·C and q·n reduced over the split)."""
         q, k, v, i_pre, f_pre = (t[:, 0].float() for t in self.qkvif(x, kernels))
         logf = F.logsigmoid(f_pre)
         m_prev = state["m"]
@@ -171,19 +168,25 @@ class SLSTMCell(nn.Module):
     def forward(self, x, state: Optional[State] = None,
                 kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, State]:
         """(y [B, S, d], final state), strictly sequential over S, from
-        ``state`` or the zero state. Decode is the same with S = 1. Runs
-        through ``kernels.local``: on a mesh, on each device's batch
-        block."""
-        return kernels.local(self._forward, self, x, state)
+        ``state`` or the zero state. Decode is the same with S = 1. The
+        recurrence, and the feed-forward's down-projection after it, run
+        through ``kernels.local``: on a mesh, on each device's batch block,
+        where ``repro``'s partitioned HLO keeps them too; the other products
+        are laid out by the mesh."""
+        pre_all = kernels.matmul(x, self.w_in) + self.b
+        hs, st = kernels.local(self._scan, self, pre_all, state, weights=("r",))
+        y = kernels.matmul(hs, self.out_proj)
+        g = F.gelu(kernels.matmul(y, self.ff_w1).float(), approximate="tanh").to(x.dtype)
+        return kernels.local(lambda a: a @ self.ff_w2, self, g * kernels.matmul(y, self.ff_w3),
+                             weights=("ff_w2",)), st
 
-    def _forward(self, x, state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
-        b, s, d = x.shape
-        st = state if state is not None else slstm_init_state(self.cfg, b, x.device)
-        pre_all = x @ self.w_in + self.b
+    def _scan(self, pre_all, state: Optional[State] = None) -> Tuple[torch.Tensor, State]:
+        """The recurrence over pre_all [B, S, 4d] → (h [B, S, d] in
+        pre_all's type, final state)."""
+        b, s, _ = pre_all.shape
+        st = state if state is not None else slstm_init_state(self.cfg, b, pre_all.device)
         hs = []
         for t in range(s):
             st = self._step(pre_all[:, t], st)
             hs.append(st["h"])
-        y = torch.stack(hs, dim=1).reshape(b, s, d).to(x.dtype) @ self.out_proj
-        g = F.gelu((y @ self.ff_w1).float(), approximate="tanh").to(x.dtype)
-        return (g * (y @ self.ff_w3)) @ self.ff_w2, st
+        return torch.stack(hs, dim=1).reshape(b, s, self.cfg.d_model).to(pre_all.dtype), st

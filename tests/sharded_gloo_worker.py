@@ -12,6 +12,18 @@ of ``WORKDIR/inputs.pkl`` (``repro``'s, as numpy, carried across by
   column of ``decode_tokens`` (teacher-forced);
 * tinyllama-1.1b (smoke): one train step on ``train_tokens`` /
   ``train_labels``;
+* granite-moe-1b-a400m (smoke): the same prefill and decode steps, and a
+  train step on ``moe_train_tokens`` / ``moe_train_labels`` (its experts
+  split over "model": the tokens exchanged by all-to-all in the prefill and
+  the train step, the decode's tokens whole there);
+* xlstm-1.3b and zamba2-7b (smoke): the prefill and decode steps of the
+  first 2 rows, which leave "model" to the recurrent cells (the mLSTM step
+  in the state's split, each device its Mamba2 heads);
+* attention on a query sequence shard: q [B, S, 3, 16], k, v [B, S, 1, 16]
+  (3 heads, which "model" does not divide; S the prompt's length and one
+  less, which "model" does not divide either) as DTensors along the batch
+  and the sequence, through the sharded bundle's plain attention, causal
+  and not, forward and the gradients of a seeded weighting of the output;
 
 and, when MESH is (1, 1), the same cells unsharded. Process 0 writes each
 result whole (logits, the cache, the loss, each gradient, the masters and
@@ -55,14 +67,12 @@ def main(rank, world, rows, cols, workdir):
         t = tree.full_tensor() if is_dtensor(tree) else tree
         return t.detach().to(torch.float32).numpy() if t.is_floating_point() else t.numpy()
 
-    out = {}
-    meshes = [("sharded", mesh)] + ([("whole", None)] if rows * cols == 1 else [])
-    for label, m in meshes:
-        cfg = SMOKE_CONFIGS["qwen3-4b"]
-        tokens = torch.from_numpy(inp["tokens"])
+    def serve(arch, params, m, rows=None):
+        cfg = SMOKE_CONFIGS[arch]
+        tokens = torch.from_numpy(inp["tokens"][:rows])
         b, s = tokens.shape
         max_seq = inp["max_seq"]
-        model = api.params_from_numpy(cfg, inp["qwen_params"], "cpu")
+        model = api.params_from_numpy(cfg, inp[params], "cpu")
         prefill = build_cell(cfg, ShapeConfig("p", s, b, "prefill"), "cpu", mesh=m)
         args = prefill.shard((model, {"tokens": tokens}))
         # the prompt prefilled through the api with the cache padded to max_seq
@@ -73,27 +83,61 @@ def main(rank, world, rows, cols, workdir):
             steps = [whole(logits)]
             dec = build_cell(cfg, ShapeConfig("d", max_seq, b, "decode"), "cpu", mesh=m)
             for j in range(inp["decode_tokens"].shape[1]):
-                tok = torch.from_numpy(inp["decode_tokens"][:, j:j + 1].copy())
+                tok = torch.from_numpy(inp["decode_tokens"][:rows, j:j + 1].copy())
                 if m is not None:
                     tok = shard_batch(cfg, {"t": tok}, m)["t"]
                 lg, cache = dec.fn(args[0], cache, tok, torch.tensor(s + j), kernels=kernels)
                 steps.append(whole(lg))
-        out[label] = {"logits": steps, "cache": whole(cache)}
+        return {"logits": steps, "cache": whole(cache)}
 
-        tcfg = SMOKE_CONFIGS["tinyllama-1.1b"]
-        tb = {"tokens": torch.from_numpy(inp["train_tokens"]),
-              "labels": torch.from_numpy(inp["train_labels"])}
-        tmodel, masters = api.trainable_from_numpy(tcfg, inp["tiny_params"], "cpu")
+    def train(arch, params, m, batch="train"):
+        tcfg = SMOKE_CONFIGS[arch]
+        tb = {"tokens": torch.from_numpy(inp[f"{batch}_tokens"]),
+              "labels": torch.from_numpy(inp[f"{batch}_labels"])}
+        tmodel, masters = api.trainable_from_numpy(tcfg, inp[params], "cpu")
         bt, st = tb["tokens"].shape
         tcell = build_cell(tcfg, ShapeConfig("t", st, bt, "train"), "cpu", mesh=m)
         targs = tcell.shard((tmodel, {"params": masters, "opt_state": adamw_init(masters)},
                              tb))
         loss = tcell.run(targs)
-        out[label]["train"] = {
-            "loss": whole(loss), "grads": {n: whole(p.grad)
-                                           for n, p in targs[0].named_parameters()},
-            "masters": whole(targs[1]["params"]),
-            "m": whole(targs[1]["opt_state"]["m"]), "v": whole(targs[1]["opt_state"]["v"])}
+        return {"loss": whole(loss), "grads": {n: whole(p.grad)
+                                               for n, p in targs[0].named_parameters()},
+                "masters": whole(targs[1]["params"]),
+                "m": whole(targs[1]["opt_state"]["m"]), "v": whole(targs[1]["opt_state"]["v"])}
+
+    def attention(m):
+        from torch.distributed.tensor import Shard, distribute_tensor
+
+        from repro_torch.models.common import PLAIN
+
+        fn = PLAIN.attention if m is None else sharded(PLAIN, rules_for("dense")).attention
+        got = {}
+        for s in (inp["tokens"].shape[1], inp["tokens"].shape[1] - 1):  # "model" divides one
+            gen = torch.Generator().manual_seed(5)
+            q, k, v, w = (torch.randn(inp["tokens"].shape[0], s, n, 16, generator=gen)
+                          for n in (3, 1, 1, 3))
+            for causal in (True, False):
+                ins = [t.clone() if m is None else distribute_tensor(t, m, [Shard(0), Shard(1)])
+                       for t in (q, k, v, w)]
+                for t in ins[:3]:
+                    t.requires_grad_(True)
+                o = fn(*ins[:3], causal)
+                (o * ins[3]).sum().backward()
+                got[s, causal] = {"out": whole(o),
+                                  **{n: whole(t.grad) for n, t in zip("qkv", ins)}}
+        return got
+
+    out = {}
+    meshes = [("sharded", mesh)] + ([("whole", None)] if rows * cols == 1 else [])
+    for label, m in meshes:
+        out[label] = serve("qwen3-4b", "qwen_params", m)
+        out[label]["train"] = train("tinyllama-1.1b", "tiny_params", m)
+        out[label]["moe"] = serve("granite-moe-1b-a400m", "moe_params", m)
+        out[label]["moe"]["train"] = train("granite-moe-1b-a400m", "moe_train_params", m,
+                                           "moe_train")
+        out[label]["attention"] = attention(m)
+        for arch in ("xlstm-1.3b", "zamba2-7b"):  # B 2: "model" left to the cells' heads
+            out[label][arch] = serve(arch, arch + "_params", m, rows=2)
     if rank == 0:
         with open(os.path.join(workdir, f"out_{rows}x{cols}.pkl"), "wb") as fh:
             pickle.dump(out, fh)

@@ -1,16 +1,23 @@
-"""``repro``'s per-device numbers on a (2, 4) ("data", "model") mesh of eight
-forced host devices, for ``tests/test_torch_sharding.py``.
+"""``repro``'s per-device numbers on meshes of eight forced host devices,
+for ``tests/test_torch_sharding.py``.
 
 Run as a script in a process of its own: ``XLA_FLAGS`` must force the
 eight host devices before jax is imported, which the test process has
-already done with one. Prints one JSON object: for each "arch/kind" cell at
-B × S, the per-device FLOPs of ``analyze_hlo`` over the compiled step's HLO
-and its collectives by kind (count and bytes).
+already done with one. Takes one JSON list of cells, each ``{"name",
+"arch", "kind", "b", "s", "mesh": [sizes], "replace": {field: value}}``
+and optionally ``"names"``, the mesh's axis names (default ``["data",
+"model"]``); ``replace`` is applied to the smoke config by
+``dataclasses.replace`` (a key ``"moe.<field>"`` replaces a field of the
+MoE config), and the mesh's devices are the first host devices. Prints one JSON object: for each cell's name, the per-device
+FLOPs of ``analyze_hlo`` over the compiled step's HLO and its collectives
+by kind (count and bytes).
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
-        python tests/sharded_referee.py tinyllama-1.1b/train xlstm-1.3b/decode ...
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 python tests/sharded_referee.py \\
+        '[{"name": "x", "arch": "xlstm-1.3b", "kind": "decode", "b": 2, "s": 32,
+           "mesh": [2, 4], "replace": {}}]'
 """
 
+import dataclasses
 import json
 import os
 import sys
@@ -27,21 +34,31 @@ from repro.configs.base import ShapeConfig  # noqa: E402
 from repro.launch.roofline import analyze_hlo  # noqa: E402
 from repro.launch.steps import build_cell  # noqa: E402
 
-B, S = 8, 32
+
+def replaced(cfg, fields):
+    """``cfg`` with ``fields`` replaced; ``"moe.<field>"`` names a field of
+    ``cfg.moe``."""
+    top = {k: v for k, v in fields.items() if "." not in k}
+    moe = {k.split(".", 1)[1]: v for k, v in fields.items() if k.startswith("moe.")}
+    if moe:
+        top["moe"] = dataclasses.replace(cfg.moe, **moe)
+    return dataclasses.replace(cfg, **top)
 
 
 def main(cells):
-    mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
     out = {}
-    for cell_name in cells:
-        arch, kind = cell_name.split("/")
-        cell = build_cell(SMOKE_CONFIGS[arch], ShapeConfig("t", S, B, kind), mesh)
+    for c in cells:
+        shape = tuple(c["mesh"])
+        mesh = Mesh(np.array(jax.devices()[:int(np.prod(shape))]).reshape(shape),
+                    tuple(c.get("names", ("data", "model"))))
+        cfg = replaced(SMOKE_CONFIGS[c["arch"]], c.get("replace", {}))
+        cell = build_cell(cfg, ShapeConfig("t", c["s"], c["b"], c["kind"]), mesh)
         stats = analyze_hlo(cell.lower().compile().as_text())
-        out[cell_name] = {"flops": int(stats.flops),
+        out[c["name"]] = {"flops": int(stats.flops),
                           "coll_count_by_kind": dict(stats.coll_count_by_kind),
                           "coll_bytes_by_kind": dict(stats.coll_bytes_by_kind)}
     print(json.dumps(out))
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    main(json.loads(sys.argv[1]))

@@ -139,3 +139,31 @@ def test_flash_bound_holds_the_kernels_rounding_and_rejects_the_control():
     bad = want.to(torch.float32)
     bad[:, 64:] *= 1.0 + 2.0 ** -5
     assert share(bad.to(torch.bfloat16)) > 1
+
+
+# (B, Sq rows, Sk, H, KV, hd, q_start): a causal query shard, the rows of a
+# longer sequence from q_start on against that sequence's keys whole
+ROWS_CASES = {
+    "last_quarter": (2, 16, 64, 4, 2, 64, 48),
+    "middle_rows_tail": (1, 24, 56, 8, 2, 32, 13),
+    "rows_past_the_keys": (1, 8, 20, 4, 4, 16, 30),
+}
+
+
+@pytest.mark.parametrize("case", ROWS_CASES.values(), ids=ROWS_CASES.keys())
+def test_q_start_matches_blockwise_attention_with_offset_positions(case):
+    """The plain path's rows from ``q_start`` against ``repro``'s
+    ``blockwise_attention`` with ``q_positions`` from ``q_start`` on; the
+    same rows from position 0 (the control) miss; the dry-run count of the
+    visible pairs is the mask's."""
+    b, sq, sk, h, kv, hd, q_start = case
+    (q, k, v), (qj, kj, vj) = inputs((b, sq, sk, h, kv, hd, True), torch.bfloat16, seed=6)
+    want = blockwise_attention(qj, kj, vj, causal=True,
+                               q_positions=jnp.arange(q_start, q_start + sq)[None, :])
+    close(ops.flash_attention(q, k, v, causal=True, q_start=q_start), want, torch.bfloat16)
+    with pytest.raises(AssertionError):
+        close(ops.flash_attention(q, k, v, causal=True), want, torch.bfloat16)
+    mask = np.arange(q_start, q_start + sq)[:, None] >= np.arange(sk)[None, :]
+    assert ops._visible_pairs(sq, sk, True, q_start) == int(mask.sum())
+    assert ops.flash_attention(q, k, v, causal=True, q_start=0).equal(
+        ops.flash_attention(q, k, v, causal=True))

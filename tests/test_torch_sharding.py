@@ -19,11 +19,14 @@
   and the terms itemized in :func:`mesh_terms`; each device's parameter,
   cache and input blocks are exactly ``repro``'s shard shapes; each
   collective kind of ``repro``'s HLO is in the count or in
-  :data:`KINDS_NOT_EMITTED` with its reason;
+  :data:`KINDS_NOT_EMITTED` with its reason; on the moe cells whose tokens
+  "model" splits, the collective bytes that grow with the experts' slots
+  are, in both packages, the slot buffers :data:`SLOT_BUFFERS` itemizes;
 * the production mesh and ``train --production-mesh`` refuse any other
   process count, naming it.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -48,6 +51,7 @@ from repro.models.sharding import rules_for as ref_rules_for
 from test_torch_dryrun import extra_terms
 
 from repro_torch.configs import ALL_ARCHS, SMOKE_CONFIGS, get_config
+from repro_torch.kernels.mlstm_chunk.ops import work as mlstm_work
 from repro_torch.configs.base import SHAPES, ShapeConfig
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.steps import build_cell
@@ -59,8 +63,41 @@ ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "pod2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
 B, S = 8, 32
-REFEREE_CELLS = [f"{a}/{k}" for a in ("tinyllama-1.1b", "xlstm-1.3b")
-                 for k in ("train", "prefill", "decode")]
+# {cell: (arch, step kind, B, mesh (data, model), smoke config fields replaced)}, all at
+# S 32: tinyllama-1.1b and xlstm-1.3b at B 8 split everything eight ways; the others
+# leave "model" free of the batch (B 2 for the ssm and hybrid tables), or give it
+# experts to split (moe) or heads it does not divide (whisper-large-v3's 4 on a (1, 8)
+# mesh, deepseek-coder-33b's smoke config with 6 heads of 16 on (2, 4))
+REFEREE = {
+    **{f"{a}/{k}": (a, k, B, (2, 4), {}) for a in ("tinyllama-1.1b", "xlstm-1.3b")
+       for k in ("train", "prefill", "decode")},
+    **{f"{a}/{k}": (a, k, B, (2, 4), {}) for a in ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+       for k in ("train", "prefill", "decode")},
+    **{f"xlstm-1.3b/{k}@b2": ("xlstm-1.3b", k, 2, (2, 4), {}) for k in ("prefill", "decode")},
+    **{f"zamba2-7b/{k}@b2": ("zamba2-7b", k, 2, (2, 4), {})
+       for k in ("train", "prefill", "decode")},
+    **{f"whisper-large-v3/{k}@1x8": ("whisper-large-v3", k, B, (1, 8), {})
+       for k in ("train", "prefill", "decode")},
+    **{f"deepseek-coder-33b/{k}@6heads": ("deepseek-coder-33b", k, B, (2, 4),
+                                          {"n_heads": 6, "head_dim": 16})
+       for k in ("train", "prefill", "decode")},
+    # dims "model" does not divide: whisper's 1500 audio frames on 16 (here 12
+    # on 8; its decode: the train and prefill steps of repro pad the frames,
+    # ROADMAP queue 3), granite's 49155-entry vocabulary on 16 (here 250 on 4)
+    "whisper-large-v3/decode@1x8-12frames": ("whisper-large-v3", "decode", B, (1, 8),
+                                             {"n_audio_frames": 12}),
+    **{f"granite-moe-1b-a400m/{k}@vocab250": ("granite-moe-1b-a400m", k, B, (2, 4),
+                                              {"vocab": 250})
+       for k in ("prefill", "decode")},
+}
+REFEREE_CELLS = list(REFEREE)
+# the moe cells whose tokens are split over "model": each is also compiled by
+# repro with twice its capacity factor, so that the collective bytes which
+# grow with the slots (the exchange of the experts' [E, C] slot rows) can be
+# told from the rest
+CAPACITY_X2 = {n: f"{n}#capacity-x2" for n, (a, k, _, _, r) in REFEREE.items()
+               if a in ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b")
+               and k in ("train", "prefill") and not r}
 
 
 def abstract_mesh(shape, names):
@@ -366,10 +403,26 @@ KINDS_NOT_EMITTED = {
     ("xlstm-1.3b", "train", "all-to-all"):
         "XLA re-lays one mLSTM projection's gradient by an all-to-all; DTensor reduces it "
         "(reduce-scatter, all-reduce) where it was made",
+    **{(a, k, "all-reduce"):
+       "XLA brings the experts' outputs back to their tokens by the combine einsum's sum "
+       "over the model-split experts (an all-reduce); the port by an all-to-all of the "
+       "experts' rows (sharding._expert_parallel)"
+       for a in ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b") for k in ("prefill",)},
+    ("whisper-large-v3", "prefill", "all-reduce"):
+        "XLA sums the encoder's output projection over its model-split features (partial "
+        "products, an all-reduce); the port gathers the weight and each device takes its "
+        "rows (sharding._matmul)",
+    **{(a, k, "all-to-all"):
+       "XLA moves attention's activations between the projections' feature split and the "
+       "query rows' sequence split by all-to-all where the heads do not divide 'model'; "
+       "the port gathers the split it leaves (all-gather)"
+       for a, k in (("whisper-large-v3", "train"), ("whisper-large-v3", "decode"),
+                    ("whisper-large-v3", "prefill"), ("deepseek-coder-33b", "train"),
+                    ("deepseek-coder-33b", "prefill"))},
     ("xlstm-1.3b", "decode", "all-reduce"):
-        "XLA contracts the mLSTM state C along its model-sharded dim and all-reduces the "
-        "product; the port's decode recurrence runs on each device's batch block "
-        "(sharding.run_local) and gathers C's block first",
+        "XLA contracts the mLSTM state C along a model-split dim and all-reduces the "
+        "product; the port's decode step follows the state's layout, split by the batch "
+        "alone where the batch covers the mesh",
 }
 
 
@@ -378,9 +431,11 @@ def not_emitted(arch, kind, coll):
                                                  (arch, "*", coll), ("*", "*", coll)))
 
 
-def mesh_terms(cfg, kind, n_dev=8, b=B, s=S):
+def mesh_terms(cfg, kind, mesh_shape=(2, 4), b=B, s=S):
     """{term: (per-device FLOPs, the line)}: what ``repro``'s partitioned
-    HLO does beyond 1/n_dev of its one-device HLO (negative: less)."""
+    HLO does beyond 1/n of its one-device HLO on a ``mesh_shape`` ("data",
+    "model") mesh of n devices (negative: less)."""
+    n_dev = math.prod(mesh_shape)
     terms = {}
     if cfg.family == "ssm" and kind == "train":
         n_s = cfg.n_layers // cfg.slstm_every
@@ -389,6 +444,35 @@ def mesh_terms(cfg, kind, n_dev=8, b=B, s=S):
         terms["repro on the mesh: one of the two products of the mLSTM C update's zero "
               "cotangent (d(k), d(v)) is gone"] = (
             -n_m * 2 * b * s * h * hd * hd // n_dev, "repro/models/xlstm.py:165")
+    if cfg.family == "ssm" and b % n_dev and kind != "train":
+        # the batch leaves "model" free; the mLSTM's heads do not divide it
+        n_s = cfg.n_layers // cfg.slstm_every
+        n_m = cfg.n_layers - n_s
+        h, hd = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+        n_batch = math.gcd(b, n_dev)
+        if kind == "prefill":
+            whole = n_m * mlstm_work(b * h, s, hd, 128, 2).flops
+            terms["port: the mLSTM chunk kernel whole on each 'model' device (its heads do not "
+                  "divide the axis; repro splits C's key features there)"] = (
+                -(whole // n_batch - whole // n_dev), "repro_torch/models/sharding.py")
+            terms["repro on the mesh: each chunk's q·kᵀ and n update split by the heads, "
+                  "whole on two of the four 'model' devices"] = (
+                n_m * 2 * b * s * h * hd * (min(s, 128) + 1) // n_dev,
+                "repro/models/xlstm.py:148,168")
+        else:
+            terms["repro on the mesh: the decode's q·n twice a device"] = (
+                n_m * 2 * b * h * hd // n_dev, "repro/models/xlstm.py:200")
+    if cfg.family == "hybrid" and b % n_dev and kind == "train":
+        d = cfg.d_model
+        terms["repro on the mesh: the backward of its remat'd group body does one product "
+              "of the shared block's q, k, v size (from the 2d concat) more a device"] = (
+            3 * 2 * b * s * 2 * d * d // n_dev, "repro/models/recurrent.py:311")
+    if cfg.family == "moe" and kind == "train" and cfg.moe.n_experts == mesh_shape[1]:
+        m = cfg.moe
+        terms["repro on the mesh: the gate's gradient product over e is a multiply where "
+              "each device holds one expert"] = (
+            -cfg.n_layers * 2 * b * s * m.top_k * m.n_experts // n_dev,
+            "repro/models/moe.py:79")
     return terms
 
 
@@ -401,8 +485,13 @@ def _referee_process(tmp_path_factory):
                JAX_PLATFORMS="cpu", PYTHONPATH=str(ROOT / "src"))
     err = tmp_path_factory.mktemp("referee") / "stderr"
     with open(err, "w") as fh:
+        cells = [{"name": n, "arch": a, "kind": k, "b": b, "s": S, "mesh": list(m),
+                  "replace": r} for n, (a, k, b, m, r) in REFEREE.items()]
+        cells += [dict(c, name=CAPACITY_X2[c["name"]], replace={
+            "moe.capacity_factor": 2 * REF_SMOKE[c["arch"]].moe.capacity_factor})
+            for c in cells if c["name"] in CAPACITY_X2]
         proc = subprocess.Popen([sys.executable, str(ROOT / "tests" / "sharded_referee.py"),
-                                 *REFEREE_CELLS], env=env, stdout=subprocess.PIPE,
+                                 json.dumps(cells)], env=env, stdout=subprocess.PIPE,
                                 stderr=fh, text=True)
         proc.stderr_path = err
         yield proc
@@ -416,6 +505,35 @@ def referee(_referee_process):
     out, _ = _referee_process.communicate(timeout=300)
     assert _referee_process.returncode == 0, _referee_process.stderr_path.read_text()[-3000:]
     return json.loads(out.strip().splitlines()[-1])
+
+
+# slot buffers a layer moves over "model" per device, in units of one bf16
+# [local groups, E * C, d] buffer, where the tokens are split over "model"
+SLOT_BUFFERS = {
+    "port": {
+        "prefill": (2, "the dispatch and the return all-to-all (sharding._expert_parallel)"),
+        "train": (6, "the two all-to-alls in the forward, again in the checkpointed "
+                     "block's recompute, and their gradients' two"),
+    },
+    "repro": {
+        "prefill": (2.5, "the dispatch einsum's sum over the sequence-split tokens, an "
+                         "all-reduce of the float32 [E, G, C, d] slots (two buffers' "
+                         "bytes), and an all-gather of half a buffer for the combine "
+                         "(repro/models/moe.py:83,88)"),
+        "train": (2.5, "as its prefill: XLA's backward of the dispatch and combine moves "
+                       "token rows, not slots"),
+    },
+}
+
+
+def slot_buffer_bytes(cfg, b, mesh_shape):
+    """One device's bf16 slot buffer of a MoE layer: its batch block's token
+    groups × E · C slots × d."""
+    from repro_torch.models.moe import GROUP_SIZE, moe_capacity
+
+    group = min(GROUP_SIZE, S)
+    groups = b // mesh_shape[0] * S // group
+    return groups * cfg.moe.n_experts * moe_capacity(cfg.moe, group) * cfg.d_model * 2
 
 
 def _dtensor_leaves(tree, prefix=()):
@@ -432,10 +550,13 @@ def _dtensor_leaves(tree, prefix=()):
 
 
 @pytest.mark.parametrize("cell_name", REFEREE_CELLS)
-def test_per_device_flops_and_blocks_equal_repros(referee, fake_mesh, cell_name):
-    arch, kind = cell_name.split("/")
-    cfg, rcfg = SMOKE_CONFIGS[arch], REF_SMOKE[arch]
-    cell = build_cell(cfg, _shape(kind), "meta", mesh=fake_mesh)
+def test_per_device_flops_and_blocks_equal_repros(referee, cell_name):
+    arch, kind, b, mesh_shape, replace = REFEREE[cell_name]
+    cfg = dataclasses.replace(SMOKE_CONFIGS[arch], **replace)
+    rcfg = dataclasses.replace(REF_SMOKE[arch], **replace)
+    n_dev = math.prod(mesh_shape)
+    mesh = mesh_mod.count_mesh(mesh_shape, ("data", "model"))
+    cell = build_cell(cfg, ShapeConfig(f"s_{kind}", S, b, kind), "meta", mesh=mesh)
     out, stats = cell.count()
     ref = referee[cell_name]
     if kind != "train":  # the step's outputs laid out as repro's out_shardings
@@ -446,14 +567,15 @@ def test_per_device_flops_and_blocks_equal_repros(referee, fake_mesh, cell_name)
             for k in path:
                 node = node[k]
             assert list(t.placements) == node, path
-    one_card = sum(f for f, _ in extra_terms(cfg, kind, B, S).values())
-    assert one_card % 8 == 0
-    mesh_ = sum(f for f, _ in mesh_terms(cfg, kind).values())
-    assert stats.flops + one_card // 8 + mesh_ == ref["flops"], (stats.flops, ref["flops"])
-    for name, (f, _) in mesh_terms(cfg, kind).items():  # the control: each term is needed
-        assert f and stats.flops + one_card // 8 + mesh_ - f != ref["flops"], name
+    one_card = sum(f for f, _ in extra_terms(cfg, kind, b, S).values())
+    assert one_card % n_dev == 0
+    terms = mesh_terms(cfg, kind, mesh_shape, b)
+    mesh_ = sum(f for f, _ in terms.values())
+    assert stats.flops + one_card // n_dev + mesh_ == ref["flops"], (stats.flops, ref["flops"])
+    for name, (f, _) in terms.items():  # the control: each term is needed
+        assert f and stats.flops + one_card // n_dev + mesh_ - f != ref["flops"], name
     # each device's blocks: exactly repro's shard shapes
-    amesh = abstract_mesh((2, 4), ("data", "model"))
+    amesh = abstract_mesh(mesh_shape, ("data", "model"))
     shapes, logical = _ref_params(rcfg, S)
     blocks = {}
     for key, t in _dtensor_leaves(cell.args[0]).items():
@@ -474,7 +596,7 @@ def test_per_device_flops_and_blocks_equal_repros(referee, fake_mesh, cell_name)
         inputs = cell.args[1]
     else:
         inputs = {"token": cell.args[2]}
-        ref_cache, ref_cache_l = ref_api.cache_shape(rcfg, B, S)
+        ref_cache, ref_cache_l = ref_api.cache_shape(rcfg, b, S)
         want_l, want_s = flat_logical(ref_cache_l), flat_shapes(ref_cache)
         for path, t in _dtensor_leaves(cell.args[1]).items():
             spec = P(*ref_spec(want_l[path], rcfg.family, amesh, want_s[path]))
@@ -491,6 +613,22 @@ def test_per_device_flops_and_blocks_equal_repros(referee, fake_mesh, cell_name)
     assert stats.argument_bytes == storage_bytes(cell.args)
     for kind_ in ref["coll_count_by_kind"]:
         assert kind_ in stats.coll_count_by_kind or not_emitted(arch, kind, kind_), kind_
+    if cell_name in CAPACITY_X2:
+        # the bytes that grow with the slots, per device: the port's all-to-alls
+        # against repro's HLO, each equal to its itemized count of slot buffers
+        # (SLOT_BUFFERS; PERF.md section 4 gives the ratio)
+        cfg2 = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=2 * cfg.moe.capacity_factor))
+        _, stats2 = build_cell(cfg2, ShapeConfig(f"s_{kind}", S, b, kind), "meta",
+                               mesh=mesh).count()
+        ref2 = referee[CAPACITY_X2[cell_name]]
+        grown = slot_buffer_bytes(cfg2, b, mesh_shape) - slot_buffer_bytes(cfg, b, mesh_shape)
+        port = {k: stats2.coll_bytes_by_kind.get(k, 0) - stats.coll_bytes_by_kind.get(k, 0)
+                for k in set(stats.coll_bytes_by_kind) | set(stats2.coll_bytes_by_kind)}
+        assert {k: v for k, v in port.items() if v} == {
+            "all-to-all": SLOT_BUFFERS["port"][kind][0] * cfg.n_layers * grown}
+        repro = sum(ref2["coll_bytes_by_kind"].values()) - sum(ref["coll_bytes_by_kind"].values())
+        assert repro == SLOT_BUFFERS["repro"][kind][0] * cfg.n_layers * grown
 
 
 def test_per_device_count_is_an_eighth_where_everything_divides(fake_mesh):
