@@ -156,15 +156,21 @@ version on the card, and drives the port's paths:
    as long as its roofline bound and its peak at least its arguments; then
    ``build_cell`` at shapes the earlier phases serve (qwen3-4b prefill b4 ×
    512 and decode b4 at 528, xlstm-1.3b prefill b4 × 512, tinyllama-1.1b
-   train b8 × 128), counted and run on the card: the counted kernel calls
-   equal to the card's launches for the same step and to
-   ``step_launches``;
+   train b8 × 128), counted and run on the card, each a CUDA graph
+   (``CellSpec.run``: the first step its capture, the second a replay):
+   the counted kernel calls equal to the card's launches for the same step
+   and to ``step_launches``;
 16. the sharded cells (``sharded``): a one-process NCCL group and
-   ``make_host_mesh()``; qwen3-4b's prefill b4 × 512 and 8 decode steps,
-   one tinyllama-1.1b train step b8 × 128 and a granite-moe-1b-a400m
-   prefill b4 × 512 (the bundle's experts) through ``build_cell(...,
-   mesh=)``, each bitwise the unsharded cell's (logits, cache, loss,
-   masters, m, v) with the same RMSNorm and flash launches; with two or
+   ``make_host_mesh()``; qwen3-4b's prefill b4 × 512 (twice) and 8 decode
+   steps, two tinyllama-1.1b train steps b8 × 128 and a
+   granite-moe-1b-a400m prefill b4 × 512 (twice; the bundle's experts)
+   through ``build_cell(..., mesh=)``, each cell eager
+   (``CellSpec.run_eager``) and as a CUDA graph (``CellSpec.run``: one
+   capture per cell and shape), both bitwise the unsharded cell's (logits,
+   cache, loss, masters, m, v) with the same RMSNorm and flash launches,
+   with warm ms of each; the train CLI on that mesh (``train(...,
+   mesh=)``, ``--production-mesh``'s step; tinyllama-1.1b smoke, 4 steps)
+   one capture, its losses equal to the one-card run's; with two or
    more cards, the prefill on a (1, n) mesh in n processes too (logits
    within 0.085 a row of one card's, ``CommDebugMode``'s collectives equal
    to the count's); and the dry run per device of repro's 16x16 and
@@ -183,7 +189,11 @@ on every visible card, then phi3.5-moe-42b-a6.6b whole (all 32 layers, b4 ×
 exchanged by all-to-all: the kernel path's logits within twice a rounding
 reference's reading of the plain path (the plain routes replayed), a
 control above that limit, ``CommDebugMode``'s collectives equal to the
-count's (all-to-alls among them), each card's peak beside the count.
+count's (all-to-alls among them), each card's peak beside the count. Each
+of the two prefill cells also runs as a CUDA graph on the n cards: a
+replay's logits bitwise the eager cell's, the collectives recorded in the
+capture (what each replay launches) equal to the count's, and the warm
+host ms of the eager step and of a replay.
 The serving kernels' check against their plain versions (before 3) also
 holds the flash kernel on a causal query shard (rows from ``q_start`` 384,
 the shard of a mesh axis that does not divide the heads) to
@@ -1967,7 +1977,8 @@ def serve_planned(cfg, params, dev, table, request, per_cycle, crash_after):
     _to_host(state)
     store_s = time.perf_counter() - t0
     cache_bytes = sum(t.numel() * t.element_size() for t in S._leaves(state["cache"]))
-    cap = S._step_fns(cfg.name, False, b, p + g, dev, donate=False)[1]._graphs[params]
+    decode = S._step_fns(cfg.name, False, b, p + g, dev, donate=False)[1]
+    (cap,) = decode.graphs(params).values()
     feed_ms = cuda_ms(lambda: cap.feed({"cache": state["cache"], "tok": state["tok"],
                                         "pos": p}), 5)
     clone_ms = cuda_ms(lambda: S._map(torch.clone, cap.inputs["cache"]), 5)
@@ -3827,8 +3838,9 @@ DRYRUN_SERVED = (("qwen3-4b", "prefill", 4, 512), ("qwen3-4b", "decode", 4, 528)
 
 def _held_to_count(where, roofline, step_s, peak, args_bytes, counted_peak) -> dict:
     """The measured step against its count: counted work the card could not
-    have done in the measured time is an over-count; the card's peak holds
-    the arguments at least."""
+    have done in the measured time is an over-count; the card's peak in the
+    eager step (``peak``: the graph's warm-up, before the capture, so the
+    graph's private pool is not in it) holds the arguments at least."""
     bound_s = max(roofline["t_compute"], roofline["t_memory"])
     if bound_s > step_s:
         raise AssertionError(f"dryrun {where}: the roofline bound {bound_s} s exceeds the "
@@ -3843,10 +3855,11 @@ def _held_to_count(where, roofline, step_s, peak, args_bytes, counted_peak) -> d
 def dryrun_path(dev, workdir: Path) -> dict:
     """``dryrun.main(["--all", ...])``: 40 records, 8 skipped, 0 errors,
     each with repro's keys, every measured cell within its roofline bound;
-    then each DRYRUN_SERVED shape through ``build_cell``: its counted kernel
-    calls equal to the card's launches for the same step and to
-    ``step_launches``, its bound and peak held as above. Returns the
-    launches of the phase."""
+    then each DRYRUN_SERVED shape through ``build_cell``: a CUDA graph (the
+    measured step a replay), its counted kernel calls equal to the card's
+    launches for the same step and to ``step_launches``, its bound and peak
+    held as above, the graph's pool beside the peak. Returns the launches
+    of the phase."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
@@ -3881,10 +3894,14 @@ def dryrun_path(dev, workdir: Path) -> dict:
     for r in recs:
         if "measured" in r:
             m, mem = r["measured"], r["memory"]
-            measured[f"{r['arch']} {r['shape']}"] = _held_to_count(
-                f"{r['arch']} {r['shape']}", r["roofline"], m["step_s"], m["peak_bytes"],
-                mem["argument_size_in_bytes"],
-                mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"])
+            if not m["graphed"]:
+                raise AssertionError(f"dryrun {r['arch']} {r['shape']}: measured eager")
+            measured[f"{r['arch']} {r['shape']}"] = {
+                "graphed": True, "pool_bytes": m["pool_bytes"],
+                "graphed_peak_bytes": m["peak_bytes"], **_held_to_count(
+                    f"{r['arch']} {r['shape']}", r["roofline"], m["step_s"],
+                    m["eager_peak_bytes"], mem["argument_size_in_bytes"],
+                    mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"])}
     fits = sorted(f"{r['arch']} {r['shape']}" for r in recs if r.get("fits"))
     if sorted(measured) != fits:
         raise AssertionError(f"dryrun: cells that fit {fits}, measured {sorted(measured)}")
@@ -3913,12 +3930,19 @@ def dryrun_path(dev, workdir: Path) -> dict:
         if not (counted == m["launched"] == want):
             raise AssertionError(f"dryrun {name}: counted kernel calls {counted}, the card "
                                  f"launched {m['launched']}, step_launches {want}")
-        served[name] = {"kernel_calls": counted, "count_s": count_s,
+        if not m["graphed"]:
+            raise AssertionError(f"dryrun {name}: the measured step was not a graph replay")
+        # the floor holds the eager step's own peak (the warm-up, before the
+        # capture); the peak over warm-up, capture and replay, which holds the
+        # graph's pool too, is printed beside it
+        served[name] = {"kernel_calls": counted, "count_s": count_s, "graphed": True,
                         "first_step_s": m["first_step_s"], "flops": stats.flops,
-                        "bytes": stats.bytes,
+                        "bytes": stats.bytes, "pool_bytes": m["pool_bytes"],
+                        "graphed_peak_bytes": m["peak_bytes"],
+                        "graphed_peak_over_counted": m["peak_bytes"] / stats.peak_bytes,
                         **_held_to_count(name, roofline_terms(stats.flops, stats.bytes, 0.0),
-                                         m["step_s"], m["peak_bytes"], stats.argument_bytes,
-                                         stats.peak_bytes)}
+                                         m["step_s"], m["eager_peak_bytes"],
+                                         stats.argument_bytes, stats.peak_bytes)}
         del cell
         gc.collect()
         torch.cuda.empty_cache()
@@ -3930,14 +3954,19 @@ def dryrun_path(dev, workdir: Path) -> dict:
 
 # The sharded phase: repro's model sharding on a torch DeviceMesh.
 # One card: qwen3-4b's prefill of SHARDED_PREFILL and SHARDED_DECODE_STEPS
-# teacher-forced decode steps, and one SHARDED_TRAIN step, through
-# build_cell(..., mesh=make_host_mesh()) on a one-process NCCL group, each
-# bitwise the unsharded cell's; with more cards, the prefill on a (1, n)
-# mesh too; then the dry run per device of repro's production meshes on
-# SHARDED_DRYRUN_ARCHS, within SHARDED_DRYRUN_BUDGET_S.
+# teacher-forced decode steps, and SHARDED_TRAIN_STEPS SHARDED_TRAIN steps,
+# through build_cell(..., mesh=make_host_mesh()) on a one-process NCCL
+# group, each cell eager and as a CUDA graph, both bitwise the unsharded
+# cell's; with more cards, the prefill on a (1, n) mesh too; then the dry
+# run per device of repro's production meshes on SHARDED_DRYRUN_ARCHS,
+# within SHARDED_DRYRUN_BUDGET_S.
 SHARDED_PREFILL = (4, 512)
 SHARDED_DECODE_STEPS = 8
 SHARDED_TRAIN = ("tinyllama-1.1b", 8, 128)
+SHARDED_TRAIN_STEPS = 2   # the graphed cell's capture, then a replay
+# the train CLI's step on the one-card mesh (--production-mesh's path):
+# arch (smoke), steps, batch, seq, burst steps, whole and on the mesh
+SHARDED_CLI = ("tinyllama-1.1b", 4, 8, 128, 4)
 # a full-width MoE prefill (arch, batch, prompt) through the sharded bundle's
 # experts on the one-card mesh, bitwise the unsharded cell
 SHARDED_MOE = ("granite-moe-1b-a400m", 4, 512)
@@ -3966,11 +3995,25 @@ def _whole(t):
     return t.to_local() if t.device_mesh.size() == 1 else t.full_tensor()
 
 
-def sharded_serving(cfg, dev, mesh) -> dict:
+def _timed(fn):
+    """(``fn()``, its host seconds from a synchronized card to the next
+    synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def sharded_serving(cfg, dev, mesh, eager: bool = False) -> tuple:
     """qwen3-4b's prefill of SHARDED_PREFILL (its cache padded for the
-    decode) and SHARDED_DECODE_STEPS decode steps on fixed tokens, through
-    ``build_cell`` cells (``mesh`` None: whole): each step's logits and the
-    final cache, whole."""
+    decode; twice, the second warm) and SHARDED_DECODE_STEPS decode steps on
+    fixed tokens, through ``build_cell`` cells (``mesh`` None: whole) with
+    ``CellSpec.run`` (on the card a graph: the first prefill and the first
+    step capture) or, with ``eager``, ``CellSpec.run_eager`` → (each
+    step's logits and the final cache, whole; the host ms of the first and
+    the warm prefill and decode step, the median of the steps after the
+    first)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_cell, shard_batch
 
@@ -3979,45 +4022,65 @@ def sharded_serving(cfg, dev, mesh) -> dict:
     pre = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh,
                      max_seq=p + n)
     args = pre.materialize(0)
-    logits, cache = pre.run(args)
+    run = pre.run_eager if eager else pre.run
+    _, first_s = _timed(lambda: run(args))
+    (logits, cache), warm_s = _timed(lambda: run(args))
     dec = build_cell(cfg, ShapeConfig("decode", p + n, b, "decode"), dev, mesh=mesh)
+    step = dec.run_eager if eager else dec.run
     gen = torch.Generator(device=dev).manual_seed(11)
     tokens = torch.randint(0, cfg.vocab, (n, b, 1), generator=gen, device=dev)
-    out = [logits]
+    out, step_s = [logits], []
     for j in range(n):
         tok = tokens[j] if mesh is None else shard_batch(cfg, {"t": tokens[j]}, mesh)["t"]
-        lg, cache = dec.run((args[0], cache, tok, torch.tensor(p + j, device=dev)))
+        pos = torch.tensor(p + j, device=dev)
+        (lg, cache), s = _timed(lambda: step((args[0], cache, tok, pos)))
         out.append(lg)
-    torch.cuda.synchronize(dev)
-    return {"logits": [_whole(t) for t in out], "cache": {k: _whole(v) for k, v in cache.items()}}
+        step_s.append(s)
+    ms = {"prefill_first_ms": first_s * 1e3, "prefill_warm_ms": warm_s * 1e3,
+          "decode_first_ms": step_s[0] * 1e3,
+          "decode_warm_ms": float(np.median(step_s[1:])) * 1e3}
+    return ({"logits": [_whole(t) for t in out],
+             "cache": {k: _whole(v) for k, v in cache.items()}}, ms)
 
 
-def sharded_prefill(cfg, dev, mesh, b, p) -> dict:
+def sharded_prefill(cfg, dev, mesh, b, p, eager: bool = False) -> tuple:
     """``cfg``'s prefill of b × p through a ``build_cell`` cell (``mesh``
-    None: whole): its logits and cache, whole."""
+    None: whole), twice, with ``CellSpec.run`` (or ``run_eager``) → (the
+    second's logits and cache, whole; the host ms of each)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_cell
 
     cell = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh)
-    logits, cache = cell.run(cell.materialize(0))
-    torch.cuda.synchronize(dev)
-    return {"logits": _whole(logits), "cache": {k: _whole(v) for k, v in cache.items()}}
+    args = cell.materialize(0)
+    run = cell.run_eager if eager else cell.run
+    _, first_s = _timed(lambda: run(args))
+    (logits, cache), warm_s = _timed(lambda: run(args))
+    return ({"logits": _whole(logits), "cache": {k: _whole(v) for k, v in cache.items()}},
+            {"first_ms": first_s * 1e3, "warm_ms": warm_s * 1e3})
 
 
-def sharded_train(cfg, dev, mesh, b, s) -> dict:
-    """One train step of ``cfg`` at b × s through a ``build_cell`` cell:
-    the loss, the masters and the moments after it, whole."""
+def sharded_train(cfg, dev, mesh, b, s, eager: bool = False) -> tuple:
+    """SHARDED_TRAIN_STEPS train steps of ``cfg`` at b × s on one batch
+    through a ``build_cell`` cell, with ``CellSpec.run`` (on the card a
+    graph: the first step its capture) or ``run_eager`` → (each loss, the
+    masters and the moments after them, whole; the host ms of the first
+    and the last step)."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import build_cell
 
     cell = build_cell(cfg, ShapeConfig("train", s, b, "train"), dev, mesh=mesh)
     model, state, batch = cell.materialize(0)
-    loss = cell.run((model, state, batch))
-    torch.cuda.synchronize(dev)
+    run = cell.run_eager if eager else cell.run
+    losses, secs = [], []
+    for _ in range(SHARDED_TRAIN_STEPS):
+        loss, t = _timed(lambda: run((model, state, batch)))
+        losses.append(_whole(loss))
+        secs.append(t)
     opt = state["opt_state"]
-    return {"loss": _whole(loss), "masters": {k: _whole(v) for k, v in state["params"].items()},
-            "m": {k: _whole(v) for k, v in opt["m"].items()},
-            "v": {k: _whole(v) for k, v in opt["v"].items()}}
+    return ({"loss": losses, "masters": {k: _whole(v) for k, v in state["params"].items()},
+             "m": {k: _whole(v) for k, v in opt["m"].items()},
+             "v": {k: _whole(v) for k, v in opt["v"].items()}},
+            {"first_ms": secs[0] * 1e3, "warm_ms": secs[-1] * 1e3})
 
 
 def _bitwise(where, got, want) -> int:
@@ -4026,9 +4089,11 @@ def _bitwise(where, got, want) -> int:
     if isinstance(want, dict):
         return sum(_bitwise(f"{where}.{k}", got[k], v) for k, v in want.items())
     if isinstance(want, list):
+        if len(got) != len(want):
+            raise AssertionError(f"sharded {where}: {len(got)} tensors, want {len(want)}")
         return sum(_bitwise(f"{where}[{i}]", g, w) for i, (g, w) in enumerate(zip(got, want)))
     if not torch.equal(got, want):
-        raise AssertionError(f"sharded {where}: not bitwise the unsharded cell's "
+        raise AssertionError(f"sharded {where}: not bitwise the reference cell's "
                              f"(max |Δ| {float((got.float() - want.float()).abs().max())})")
     return 1
 
@@ -4041,12 +4106,147 @@ def _comm_kinds(counts) -> dict:
     return out
 
 
+MULTI_CARD_REPS = 3   # warm eager steps and replays timed on the cards, the least kept
+# the n worker processes of a --multi-card run: the seconds they may take in
+# all, and after process 0 wrote the result, the seconds left for the group's
+# teardown before the processes are stopped (the line says whether they were)
+MULTI_CARD_LIMIT_S = 300.0
+MULTI_CARD_TEARDOWN_S = 60.0
+
+
+def _save_result(obj, path) -> None:
+    """``torch.save`` to ``path`` whole: written beside it, then renamed."""
+    tmp = f"{path}.part"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def _run_workers(worker, n: int, store: Path, out_path: Path) -> tuple:
+    """``worker(rank, n, store, out_path)`` in n spawned processes → (the
+    result process 0 saved at ``out_path``, how the processes ended:
+    "exited", or "stopped" when they were still in the group's teardown
+    MULTI_CARD_TEARDOWN_S after the result was written). Raises when a
+    process fails, or when no result came within MULTI_CARD_LIMIT_S; every
+    process is stopped before it returns or raises."""
+    import torch.multiprocessing as mp
+
+    for f in (store, out_path):
+        f.unlink(missing_ok=True)
+    ctx = mp.start_processes(worker, args=(n, str(store), str(out_path)), nprocs=n,
+                             start_method="spawn", join=False)
+    t0, written, ended = time.monotonic(), None, "exited"
+    try:
+        while not ctx.join(timeout=2.0):
+            now = time.monotonic()
+            if written is None and out_path.exists():
+                written = now
+            if written is not None and now - written > MULTI_CARD_TEARDOWN_S:
+                ended = "stopped"
+                break
+            if written is None and now - t0 > MULTI_CARD_LIMIT_S:
+                raise AssertionError(f"{worker.__name__}: no result in {MULTI_CARD_LIMIT_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join()
+    return torch.load(out_path), ended
+
+
+@contextlib.contextmanager
+def comm_debug(model):
+    """``CommDebugMode`` over a run of ``model``; on exit the forward hooks
+    its module tracker left on ``model``'s modules are removed (torch 2.11
+    leaves some behind, and they raise when the module runs outside the
+    mode)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.distributed.tensor.debug._comm_mode import _CommModeModuleTracker
+
+    try:
+        with CommDebugMode() as comm:
+            yield comm
+    finally:
+        for mod in model.modules():
+            for key, hook in list(mod._forward_hooks.items()):
+                if isinstance(getattr(hook, "__self__", None), _CommModeModuleTracker):
+                    del mod._forward_hooks[key]
+
+
+def graph_on_mesh(cell, args) -> dict:
+    """A prefill cell on its mesh of cards, in each of the mesh's processes:
+    MULTI_CARD_REPS warm eager steps (``run_eager``, after one untimed),
+    then ``run``'s capture and MULTI_CARD_REPS replays. Returns the last
+    eager and the last replayed logits, whole (gathered outside the timed
+    calls), the collectives ``CommDebugMode`` saw while the graph was
+    captured (the capture records them, and each replay launches what it
+    recorded; the warm-up before it is not counted), the least host ms of
+    each, the first call's seconds and the capture's stats."""
+    fn, seen = cell.fn, {}
+
+    def counted(*a, **k):
+        if not torch.cuda.is_current_stream_capturing():
+            return fn(*a, **k)
+        with comm_debug(args[0]) as comm:
+            out = fn(*a, **k)
+        seen.update(_comm_kinds(comm.get_comm_counts()))
+        return out
+
+    out = {}
+    cell.fn = counted
+    for key, run in (("eager", cell.run_eager), ("graphed", cell.run)):
+        _, first_s = _timed(lambda: run(args))
+        secs = []
+        for _ in range(MULTI_CARD_REPS):
+            (logits, _), t = _timed(lambda: run(args))
+            secs.append(t)
+        out[key] = {"logits": logits.full_tensor(), "first_s": first_s,
+                    "warm_ms": min(secs) * 1e3, "ms": [t * 1e3 for t in secs]}
+        del logits
+    cell.fn = fn
+    caps = list(cell.graphs(args[0]).values())
+    if len(caps) != 1:
+        raise AssertionError(f"{len(caps)} captures of one prefill cell and shape")
+    out["collectives"] = seen
+    out["capture"] = caps[0].stats
+    return out
+
+
+REDUCTIONS = ("all-reduce", "reduce-scatter")
+
+
+def graphed_line(res, counted, limit: float) -> dict:
+    """The graphed prefill on the cards against its eager steps: the
+    replay's logits bitwise the eager ones, or, where they differ, every
+    row within ``limit`` (the cell's existing limit) of them, the cell's
+    reductions named as the collectives that may order their sums
+    otherwise in a graph; the capture's collectives the count's."""
+    eager, graphed = res["eager"], res["graphed"]
+    same = torch.equal(eager["logits"], graphed["logits"])
+    line = {"bitwise": same, "collectives": res["collectives"],
+            "eager_warm_ms": eager["warm_ms"], "graphed_warm_ms": graphed["warm_ms"],
+            "eager_ms": eager["ms"], "graphed_ms": graphed["ms"],
+            "eager_first_s": eager["first_s"], "capture_first_s": graphed["first_s"],
+            "capture": res["capture"]}
+    if not same:
+        rel = float(_row_rel(graphed["logits"], eager["logits"]).max())
+        line.update({"max_row_rel": rel, "limit": limit,
+                     "reductions": {k: n for k, n in counted.items() if k in REDUCTIONS}})
+        if rel > limit or not line["reductions"]:
+            raise AssertionError(f"graphed prefill on the cards: a replay's logits differ from "
+                                 f"the eager step's, row rel {rel} (limit {limit}), the cell's "
+                                 f"reductions {line['reductions']}")
+    if res["collectives"] != counted:
+        raise AssertionError(f"graphed prefill on the cards: the capture recorded "
+                             f"{res['collectives']}, the count {counted}")
+    return line
+
+
 def _multi_card_worker(rank: int, n: int, store: str, out_path: str) -> None:
     """One process of the (1, n) qwen3-4b prefill: its logits, the
-    collectives ``CommDebugMode`` saw and this card's peak bytes."""
+    collectives ``CommDebugMode`` saw and this card's peak bytes; then the
+    cell eager and graphed (:func:`graph_on_mesh`)."""
     sys.path.insert(0, str(ROOT / "src"))
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
@@ -4063,16 +4263,23 @@ def _multi_card_worker(rank: int, n: int, store: str, out_path: str) -> None:
     args = cell.materialize(0)
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with CommDebugMode() as comm:
-        logits, _ = cell.run(args)
+    with comm_debug(args[0]) as comm:
+        logits, _ = cell.run_eager(args)
     logits = logits.full_tensor()
     torch.cuda.synchronize(dev)
     peak = torch.tensor([torch.cuda.max_memory_allocated(dev)], device=dev)
     peaks = [torch.zeros_like(peak) for _ in range(n)]
     torch.distributed.all_gather(peaks, peak)
+    graph = graph_on_mesh(cell, args)
+    del cell, args  # and the graph, before the group goes
+    gc.collect()
+    torch.cuda.synchronize(dev)
     if rank == 0:
-        torch.save({"logits": logits.cpu(), "comm": _comm_kinds(comm.get_comm_counts()),
-                    "peaks": [int(x) for x in peaks]}, out_path)
+        _save_result({"logits": logits.cpu(), "comm": _comm_kinds(comm.get_comm_counts()),
+                    "peaks": [int(x) for x in peaks],
+                    "graph": {**graph, "eager": {**graph["eager"], "logits": graph["eager"][
+                        "logits"].cpu()}, "graphed": {**graph["graphed"], "logits": graph[
+                            "graphed"]["logits"].cpu()}}}, out_path)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
 
@@ -4119,12 +4326,12 @@ def _multi_card_moe_worker(rank: int, n: int, store: str, out_path: str) -> None
     this card's peak bytes."""
     sys.path.insert(0, str(ROOT / "src"))
     from torch.distributed.device_mesh import init_device_mesh
-    from torch.distributed.tensor.debug import CommDebugMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import init_local_group
-    from repro_torch.launch.steps import shard_batch
+    from repro_torch.launch.steps import build_cell, shard_batch
     from repro_torch.models import api
     from repro_torch.models.common import KERNELS, PLAIN
     from repro_torch.models.sharding import rules_for, sharded
@@ -4153,6 +4360,11 @@ def _multi_card_moe_worker(rank: int, n: int, store: str, out_path: str) -> None
             raise AssertionError(f"{arch} over {n} cards: logits not finite")
         return logits
 
+    cell = build_cell(cfg, ShapeConfig("prefill", p, b, "prefill"), dev, mesh=mesh)
+    graph = graph_on_mesh(cell, (model, batch))
+    del cell  # and its graph, before the peak below
+    gc.collect()
+    torch.cuda.empty_cache()
     with pin.record():
         plain = prefill(PLAIN).full_tensor()
     rows = {}
@@ -4160,10 +4372,9 @@ def _multi_card_moe_worker(rank: int, n: int, store: str, out_path: str) -> None
         with pin.replay():
             rows[name] = _row_rel(prefill(ks).full_tensor(), plain).cpu()
     rows["kernel_own_routes"] = _row_rel(prefill(KERNELS).full_tensor(), plain).cpu()
-    # last: CommDebugMode leaves forward hooks on the modules it saw
     torch.cuda.synchronize(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    with CommDebugMode() as comm, pin.replay():
+    with comm_debug(model) as comm, pin.replay():
         got = prefill(KERNELS)
     torch.cuda.synchronize(dev)
     peak = torch.tensor([torch.cuda.max_memory_allocated(dev)], device=dev)
@@ -4171,8 +4382,10 @@ def _multi_card_moe_worker(rank: int, n: int, store: str, out_path: str) -> None
     peaks = [torch.zeros_like(peak) for _ in range(n)]
     torch.distributed.all_gather(peaks, peak)
     if rank == 0:
-        torch.save({"rows": rows, "comm": _comm_kinds(comm.get_comm_counts()),
-                    "peaks": [int(x) for x in peaks], "build_s": build_s,
+        for key in ("eager", "graphed"):
+            graph[key]["logits"] = graph[key]["logits"].cpu()
+        _save_result({"rows": rows, "comm": _comm_kinds(comm.get_comm_counts()),
+                    "graph": graph, "peaks": [int(x) for x in peaks], "build_s": build_s,
                     "held_bytes": sum(t.to_local().numel() * t.element_size()
                                       for t in model.parameters())}, out_path)
     torch.distributed.barrier()
@@ -4187,8 +4400,6 @@ def multi_card_moe(n: int, workdir: Path) -> dict:
     path's routes, :class:`RoutePin`); the collectives ``CommDebugMode``
     saw, each kind as many as the count on a (1, n) ``fake`` mesh gives,
     all-to-alls among them; each card's peak beside the counted bytes."""
-    import torch.multiprocessing as mp
-
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import count_mesh
@@ -4201,17 +4412,14 @@ def multi_card_moe(n: int, workdir: Path) -> dict:
                           mesh=fake).count()
     torch.distributed.destroy_process_group()
     workdir.mkdir(parents=True, exist_ok=True)
-    store, out_path = workdir / "store_moe", workdir / "multi_card_moe.pt"
-    for f in (store, out_path):
-        f.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    mp.start_processes(_multi_card_moe_worker, args=(n, str(store), str(out_path)), nprocs=n,
-                       start_method="spawn", join=True)
-    res = torch.load(out_path)
+    res, ended = _run_workers(_multi_card_moe_worker, n, workdir / "store_moe",
+                              workdir / "multi_card_moe.pt")
     rows = {k: [float(v.min()), float(v.max())] for k, v in res["rows"].items()}
     limit = 2 * rows["rounding"][1]
     line = {"arch": arch, "layers": cfg.n_layers, "cards": n, "prefill": [b, p],
-            "seconds": time.perf_counter() - t0, "build_s": res["build_s"], "rows": rows,
+            "seconds": time.perf_counter() - t0, "workers": ended, "build_s": res["build_s"],
+            "rows": rows,
             "limit": limit, "limit_rule": "2 x the rounding reference's largest row",
             "control": f"plain path, RMSNorm and attention x (1 + {ZOO_CONTROL}) past "
                        "position 64 of each block",
@@ -4229,6 +4437,7 @@ def multi_card_moe(n: int, workdir: Path) -> dict:
     if res["comm"] != stats.coll_count_by_kind or not res["comm"].get("all-to-all"):
         raise AssertionError(f"{arch} over {n} cards: CommDebugMode saw {res['comm']}, the "
                              f"count {stats.coll_count_by_kind}")
+    line["graphed"] = graphed_line(res["graph"], stats.coll_count_by_kind, limit)
     return line
 
 
@@ -4237,8 +4446,6 @@ def multi_card_prefill(cfg, one_card_logits, n: int, workdir: Path) -> dict:
     logits within SERVE_REL_LIMIT a row of the one-card run's, the
     collectives each kind as many as the count on a (1, n) ``fake`` mesh
     gives, each card's peak beside the counted per-device bytes."""
-    import torch.multiprocessing as mp
-
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.mesh import count_mesh
     from repro_torch.launch.steps import build_cell
@@ -4249,23 +4456,19 @@ def multi_card_prefill(cfg, one_card_logits, n: int, workdir: Path) -> dict:
                           mesh=fake).count()
     torch.distributed.destroy_process_group()
     workdir.mkdir(parents=True, exist_ok=True)
-    store, out_path = workdir / "store", workdir / "multi_card.pt"
-    for f in (store, out_path):
-        f.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    mp.start_processes(_multi_card_worker, args=(n, str(store), str(out_path)), nprocs=n,
-                       start_method="spawn", join=True)
-    res = torch.load(out_path)
+    res, ended = _run_workers(_multi_card_worker, n, workdir / "store", workdir / "multi_card.pt")
     rel = float(_row_rel(res["logits"], one_card_logits.cpu()).max())
     if rel > SERVE_REL_LIMIT:
         raise AssertionError(f"sharded (1, {n}) prefill: row rel {rel} > {SERVE_REL_LIMIT}")
     if res["comm"] != stats.coll_count_by_kind:
         raise AssertionError(f"sharded (1, {n}) prefill: CommDebugMode saw {res['comm']}, "
                              f"the count {stats.coll_count_by_kind}")
-    return {"cards": n, "seconds": time.perf_counter() - t0, "max_row_rel": rel,
+    return {"cards": n, "seconds": time.perf_counter() - t0, "workers": ended, "max_row_rel": rel,
             "collectives": res["comm"], "counted_collective_bytes": stats.coll_bytes_by_kind,
             "card_peak_bytes": res["peaks"], "counted_peak_bytes": stats.peak_bytes,
-            "counted_argument_bytes": stats.argument_bytes}
+            "counted_argument_bytes": stats.argument_bytes,
+            "graphed": graphed_line(res["graph"], stats.coll_count_by_kind, SERVE_REL_LIMIT)}
 
 
 def expected_argument_bytes(cfg, shape, mesh_axes) -> int:
@@ -4440,13 +4643,17 @@ def sharded_dryrun(run: ShardedDryrun, one_card: Path) -> dict:
 
 def sharded_path(dev, workdir: Path, counting: ShardedDryrun) -> dict:
     """The sharded phase (module comment above SHARDED_PREFILL); ``counting``
-    is its dry run, started beside the earlier phases. Returns the launches
+    is its dry run, started beside the earlier phases (None: a probe
+    without it). Returns the launches
     of the sharded main path: every count set to 0 just before it, read
     just after."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_host_mesh
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
 
     t_phase = time.perf_counter()
     import torch.distributed.tensor  # noqa: F401  (DTensor: the card's torch must have it)
@@ -4456,68 +4663,103 @@ def sharded_path(dev, workdir: Path, counting: ShardedDryrun) -> dict:
     counters = serving_launches()
     cfg = get_config(SERVE_ARCH)
     tcfg = get_config(SHARDED_TRAIN[0])
-
-    # the unsharded cells first: the reference, and the launches to match
-    for fn in counters.values():
-        fn.launches = 0
-    whole = sharded_serving(cfg, dev, None)
-    whole_launches = {k: fn.launches for k, fn in counters.items()}
-    whole_train = sharded_train(tcfg, dev, None, *SHARDED_TRAIN[1:])
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    mesh = make_host_mesh("cuda")
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    got = sharded_serving(cfg, dev, mesh)
-    got_train = sharded_train(tcfg, dev, mesh, *SHARDED_TRAIN[1:])
-    main_s = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    compared = _bitwise("serving", got, whole) + _bitwise("train", got_train, whole_train)
-    b, p = SHARDED_PREFILL
-    pre, step = step_launches(cfg)
-    want = {k: pre[k] + SHARDED_DECODE_STEPS * step[k] for k in counters}
-    if not (launches == whole_launches == want):
-        raise AssertionError(f"sharded launches {launches}, unsharded {whole_launches}, "
-                             f"step_launches {want}")
-    one_card_logits = whole["logits"][0]
-    del got, whole, got_train, whole_train
-    gc.collect()
-    torch.cuda.empty_cache()
-    # the MoE prefill through the bundle's experts, whole and on the mesh
     mcfg = get_config(SHARDED_MOE[0])
-    moe_launches = []
-    for m in (None, mesh):
+
+    def captures():
+        return {**serve_mod.TRACE_COUNT, "train": train_mod.TRACE_COUNT["step"]}
+
+    # each run: the whole cells (the reference; graphs on the card), then on
+    # the one-card mesh eager and graphed; the launches of each to match
+    runs, mesh, compared = {}, None, 0
+    for label, eager in (("whole", False), ("eager", True), ("graphed", False)):
+        if label == "eager":
+            mesh = make_host_mesh("cuda")
+        before = captures()
         for fn in counters.values():
             fn.launches = 0
-        moe_out = sharded_prefill(mcfg, dev, m, *SHARDED_MOE[1:])
-        moe_launches.append({k: fn.launches for k, fn in counters.items()})
-        if m is None:
-            moe_whole = moe_out
-    compared += _bitwise("moe_prefill", moe_out, moe_whole)
-    if moe_launches[0] != moe_launches[1] or not all(
-            moe_launches[0][k] for k in ("rmsnorm", "flash_attention")):
-        raise AssertionError(f"sharded MoE prefill launches {moe_launches[1]}, unsharded "
-                             f"{moe_launches[0]}")
-    del moe_out, moe_whole
-    # the phase's path: the sharded cells, the MoE prefill's among them
-    launches = {k: n + moe_launches[1][k] for k, n in launches.items()}
+        t0 = time.perf_counter()
+        serving, serving_ms = sharded_serving(cfg, dev, mesh, eager)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        train, train_ms = sharded_train(tcfg, dev, mesh, *SHARDED_TRAIN[1:], eager=eager)
+        main_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        for fn in counters.values():
+            fn.launches = 0
+        moe, moe_ms = sharded_prefill(mcfg, dev, mesh, *SHARDED_MOE[1:], eager=eager)
+        moe_launches = {k: fn.launches for k, fn in counters.items()}
+        out = {"serving": serving, "train": train, "moe_prefill": moe}
+        if label == "whole":
+            ref = out
+        else:  # held to the whole cells' at once: one run's state on the card at a time
+            compared += sum(_bitwise(f"{label} {k}", v, ref[k]) for k, v in out.items())
+        runs[label] = {"launches": launches, "moe_launches": moe_launches, "main_s": main_s,
+                       "ms": {"serving": serving_ms, "train": train_ms, "moe_prefill": moe_ms},
+                       "captures": {k: n - before[k] for k, n in captures().items()}}
+        del out, serving, train, moe
+        gc.collect()
+        torch.cuda.empty_cache()
+    whole = runs["whole"]
+    b, p = SHARDED_PREFILL
+    pre, step = step_launches(cfg)
+    want = {k: 2 * pre[k] + SHARDED_DECODE_STEPS * step[k] for k in counters}
+    for label, r in runs.items():
+        if r["launches"] != want or r["moe_launches"] != whole["moe_launches"]:
+            raise AssertionError(f"sharded {label}: launches {r['launches']} and MoE prefill "
+                                 f"{r['moe_launches']}, step_launches {want}, whole MoE "
+                                 f"prefill {whole['moe_launches']}")
+    if not all(whole["moe_launches"][k] for k in ("rmsnorm", "flash_attention")):
+        raise AssertionError(f"sharded MoE prefill launches {whole['moe_launches']}")
+    # one capture per graphed cell and shape; none eager
+    one_each = {"prefill": 2, "decode": 1, "train": 1}
+    if (runs["eager"]["captures"] != dict.fromkeys(one_each, 0)
+            or any(runs[k]["captures"] != one_each for k in ("whole", "graphed"))):
+        raise AssertionError(f"sharded captures: { {k: r['captures'] for k, r in runs.items()} }")
+    one_card_logits = ref["serving"]["logits"][0]
+    graphed = runs["graphed"]
+    # the phase's path: the graphed sharded cells, the MoE prefill's among them
+    launches = {k: n + graphed["moe_launches"][k] for k, n in graphed["launches"].items()}
+    del ref
+    # the train CLI on the mesh, as --production-mesh runs it: one capture,
+    # the losses bitwise the one-card run's
+    arch, n_steps, tb, ts, burst = SHARDED_CLI
+    cli = {}
+    for label, m in (("whole", None), ("mesh", mesh)):
+        ckpt = workdir / f"train_cli_{label}"
+        shutil.rmtree(ckpt, ignore_errors=True)
+        before, report = train_mod.TRACE_COUNT["step"], {}
+        losses = train_mod.train(arch, n_steps, tb, ts, burst, str(ckpt), device="cuda",
+                                 mesh=m, report=report, log_every=n_steps)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        cli[label] = {"losses": losses, "captures": train_mod.TRACE_COUNT["step"] - before,
+                      "capture": report["captures"],
+                      "step_ms": [t * 1e3 for t in report["step_seconds"]]}
+    if cli["mesh"]["losses"] != cli["whole"]["losses"] or any(
+            c["captures"] != 1 or len(c["capture"]) != 1 for c in cli.values()):
+        raise AssertionError(f"train CLI on the one-card mesh: {cli}")
     dist.destroy_process_group()
     gc.collect()
     torch.cuda.empty_cache()
     line = {"phase": "sharded", "torch": torch.__version__, "mesh": [1, 1],
             "backend": "nccl", "prefill": [b, p], "decode_steps": SHARDED_DECODE_STEPS,
-            "train": list(SHARDED_TRAIN), "moe_prefill": list(SHARDED_MOE),
-            "moe_prefill_launches": moe_launches[1], "bitwise_tensors": compared,
-            "launches": launches, "main_path_s": main_s}
+            "train": list(SHARDED_TRAIN), "train_steps": SHARDED_TRAIN_STEPS,
+            "moe_prefill": list(SHARDED_MOE), "moe_prefill_launches": runs["graphed"][
+                "moe_launches"],
+            "bitwise_tensors": compared, "bitwise": "graphed = eager = whole",
+            "launches": launches, "main_path_s": runs["graphed"]["main_s"],
+            "captures": {k: r["captures"] for k, r in runs.items()},
+            "host_ms": {k: r["ms"] for k, r in runs.items()},
+            "main_s": {k: r["main_s"] for k, r in runs.items()},
+            "train_cli": {"arch": arch, "smoke": True, "steps": n_steps, "batch": [tb, ts],
+                          **cli}}
     n = torch.cuda.device_count()
     if n >= 2:
         line["multi_card"] = multi_card_prefill(cfg, one_card_logits, n, workdir)
     else:
         line["multi_card"] = "skipped"
     line["cards_visible"] = n
-    line["dryrun"] = sharded_dryrun(counting, ROOT / "build" / "dryrun")
+    line["dryrun"] = ("skipped" if counting is None
+                      else sharded_dryrun(counting, ROOT / "build" / "dryrun"))
     line["seconds"] = time.perf_counter() - t_phase
     emit(line)
     return launches
@@ -4641,7 +4883,7 @@ def multi_card_main() -> int:
     load_library()
     dev = torch.device("cuda", 0)
     cfg = get_config(SERVE_ARCH)
-    one = sharded_serving(cfg, dev, None)["logits"][0]
+    one = sharded_serving(cfg, dev, None)[0]["logits"][0]
     gc.collect()
     torch.cuda.empty_cache()
     n = torch.cuda.device_count()

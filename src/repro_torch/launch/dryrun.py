@@ -23,9 +23,12 @@ memory), ``cards_needed`` by bytes, ``kernel_calls`` (the model kernels the
 step calls), ``counted_at`` (the lengths a quadratic fit was solved from,
 where the step loops over positions on the host: the sLSTM of the ssm
 family, whose count at full length would take many minutes), and for a
-cell that fits and ran on the card ``measured`` (``first_step_s``,
-``step_s``, the card's ``peak_bytes``). ``t_lower_s`` is the time to build
-the cell, ``t_compile_s`` that of its count(s). ``--save-hlo`` becomes
+cell that fits and ran on the card ``measured`` (``first_step_s``, the
+first step with the capture of its CUDA graph, ``step_s``, a replay of it,
+``graphed``, the card's ``peak_bytes``, the graph's ``pool_bytes`` and the
+eager first step's ``eager_peak_bytes``).
+``t_lower_s`` is the time to build the cell, ``t_compile_s`` that of its
+count(s). ``--save-hlo`` becomes
 ``--save-ops``, the counted op tables. ``--check-fit`` also counts each
 fitted cell directly at its own length and holds the fit to that count
 (minutes per cell: the sLSTM's host loop). The counts run in one worker
@@ -171,28 +174,43 @@ def _at_full(cfg, shape: ShapeConfig, counts: Dict[int, Count]) -> Dict[str, int
 
 def measure(cell: CellSpec, seed: int = 0,
             launches: Optional[Callable[[], Dict[str, int]]] = None) -> Dict[str, Any]:
-    """Two steps on the card from materialized arguments: host seconds of
-    each (to a synchronize) and the card's peak bytes over both; with
+    """Two steps of ``cell.run`` from materialized arguments: host seconds
+    of each (to a synchronize) and whether they were ``graphed``. On a card
+    the first step runs the eager step and captures the cell's CUDA graph,
+    the second replays it (on the CPU both are eager, ``graphed`` false);
+    there also the card's peak bytes over both, the graph's private pool
+    among them (``pool_bytes``, the capture's reservation), and the eager
+    first step's own peak, before the capture (``eager_peak_bytes``). With
     ``launches`` (a reader of launch counters, {kernel: count}) also what
     the first step ``launched``."""
     dev = cell.device
-    torch.cuda.empty_cache()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
     args = cell.materialize(seed)
-    torch.cuda.synchronize(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     rec: Dict[str, Any] = {}
     for key in ("first_step_s", "step_s"):
         before = launches() if launches and key == "first_step_s" else None
         t0 = time.perf_counter()
         out = cell.run(args)
-        torch.cuda.synchronize(dev)
+        if cuda:
+            torch.cuda.synchronize(dev)
         rec[key] = time.perf_counter() - t0
         del out
         if before is not None:
             rec["launched"] = {k: n - before[k] for k, n in launches().items()}
-    rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
-    del args
-    torch.cuda.empty_cache()
+    graphs = cell.graphs(args[0])
+    rec["graphed"] = bool(graphs)
+    if cuda:
+        rec["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+        rec["pool_bytes"] = sum(cap.stats["pool_bytes"] for cap in graphs.values())
+        rec["eager_peak_bytes"] = max(cap.stats["warmup_peak_bytes"] for cap in graphs.values())
+    del args, graphs
+    if cuda:
+        torch.cuda.empty_cache()
     return rec
 
 

@@ -42,11 +42,10 @@ decode a clone of its logits and the graph's own cache (a clone of it
 unless ``donate``). On the CPU both are the eager functions.
 ``TRACE_COUNT`` counts, never calls: on the CPU builds of the step
 functions, on a card captures of their graphs (one per model and
-input shape, as ``repro`` counts a trace per shape). ``repro``'s
-``launch/steps.py`` and the TPU mesh layouts of ``launch/mesh.py`` have no
-counterpart on one card: their sharding constraints are TPU mesh rules
-(the port's ``launch/mesh.py`` keeps only the DSE's Q-shard devices; its
-``launch/steps.py`` builds the dry run's cells, which run eagerly).
+input shape, as ``repro`` counts a trace per shape). The cells of
+``launch/steps.py``, whole or laid out over a device mesh
+(``launch/mesh.py``), are CUDA graphs on a card through :func:`_capture`
+too.
 
 **Planned path.** With ``--plan-table`` the request is energy-bounded: its
 shape is bucketed into a :class:`repro_torch.core.plan_table.PlanTable` (an
@@ -84,6 +83,7 @@ import torch
 from ..configs import ALL_ARCHS, resolve_config
 from ..device import resolve_device
 from ..models import api
+from ..models.sharding import is_dtensor
 from ..obs.metrics import METRICS
 from ..obs.trace import TRACER
 from .traffic import Continuation, Request
@@ -152,7 +152,9 @@ def _feed(static, given, where: str = "input") -> None:
     """Copy ``given`` into the static tensors ``static`` leaf by leaf
     (nested dicts of one layout). A leaf that is its static tensor already
     is not copied, a number fills a 0-d leaf, a None stays None, and a
-    tensor of another shape raises ValueError."""
+    tensor of another shape raises ValueError. A DTensor leaf (a sharded
+    cell's) takes a DTensor of the same placements, each device's block
+    copied into its own; other placements raise ValueError."""
     if isinstance(static, Mapping):
         for k, v in static.items():
             _feed(v, given[k], f"{where}.{k}")
@@ -164,6 +166,11 @@ def _feed(static, given, where: str = "input") -> None:
             static.fill_(given)
         elif given.shape != static.shape:
             raise ValueError(f"{where} {tuple(given.shape)}, graph has {tuple(static.shape)}")
+        elif is_dtensor(static):
+            if not is_dtensor(given) or tuple(given.placements) != tuple(static.placements):
+                raise ValueError(f"{where}: placements {getattr(given, 'placements', None)}, "
+                                 f"graph has {tuple(static.placements)}")
+            static.to_local().copy_(given.to_local())
         else:
             static.copy_(given)
 
@@ -211,13 +218,18 @@ def _capture(step, inputs, dev: torch.device, like=None):
 def _record(step, cap: _Captured, dev: torch.device):
     """The warm-up, the eager step on a side stream that PyTorch's capture
     needs, on ``cap``'s static inputs: it makes the request's real launches
-    and result (and every kernel's one-time shared-memory opt-in), which it
-    returns. Then the capture of ``step`` into ``cap``'s graph; it launches
-    nothing, so the kernels' launch counts are set back after it.
+    and result (and every kernel's one-time shared-memory opt-in, every
+    NCCL communicator a sharded step uses, DTensor's sharding decisions),
+    which it returns. Then the capture of ``step`` into ``cap``'s graph; it
+    launches nothing (a sharded step's NCCL collectives are recorded, not
+    run), so the kernels' launch counts are set back after it.
     ``cap.stats``: the seconds spent recording (``capture_s``) and ending
-    the capture with the graph's instantiation (``instantiate_s``), and the
+    the capture with the graph's instantiation (``instantiate_s``), the
     bytes the allocator reserved for the graph's private pool
-    (``pool_bytes``). A failure raises: nothing drops to eager."""
+    (``pool_bytes``), and its peak of allocated bytes (since the last
+    ``reset_peak_memory_stats``) once the warm-up was enqueued, before the
+    capture (``warmup_peak_bytes``). A failure raises: nothing drops to
+    eager."""
     from ..kernels import launch_counters
     from ..kernels._build import load_library
 
@@ -229,7 +241,8 @@ def _record(step, cap: _Captured, dev: torch.device):
         out = step(cap.inputs)
     main.wait_stream(side)
     for t in _leaves(out):
-        t.record_stream(main)
+        (t.to_local() if is_dtensor(t) else t).record_stream(main)
+    warmup_peak = torch.cuda.max_memory_allocated(dev)
 
     counters = launch_counters()
     before = [fn.launches for fn in counters]
@@ -241,7 +254,8 @@ def _record(step, cap: _Captured, dev: torch.device):
             cap.outputs = step(cap.inputs)
             t1 = time.perf_counter()
         cap.stats = {"capture_s": t1 - t0, "instantiate_s": time.perf_counter() - t1,
-                     "pool_bytes": torch.cuda.memory_reserved(dev) - reserved}
+                     "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+                     "warmup_peak_bytes": warmup_peak}
         cap.launches = tuple((fn, fn.launches - n) for fn, n in zip(counters, before)
                              if fn.launches != n)
     finally:
@@ -252,28 +266,42 @@ def _record(step, cap: _Captured, dev: torch.device):
 
 
 class _GraphedDecode:
-    """Decode on a card: a CUDA graph per parameters object (the graph holds
-    the weights' addresses; it goes when the model does), its static
-    inputs the cache, the token and a 0-d position. The first call of a
-    model captures (:func:`_capture`) and returns the warm-up's result."""
+    """Decode on a card: a CUDA graph per parameters object and input shapes
+    (the graph holds the weights' addresses; it goes when the model does),
+    its static inputs the cache, the token and a 0-d position. A shape's
+    first call captures (:func:`_capture`) and returns the warm-up's
+    result. Each call returns the logits and the graph's own cache, or a
+    clone of it unless ``donate``. ``step(params, cache, tok, pos) ->
+    (logits, cache)``, the eager step it captures, defaults to
+    ``api.decode_step``; ``graphs(params)``: {input key: :class:`_Captured`}
+    of a model."""
 
-    def __init__(self, cfg, dev: torch.device, donate: bool):
+    def __init__(self, cfg, dev: torch.device, donate: bool, step=None):
         self.cfg, self.dev, self.donate = cfg, dev, donate
-        self._graphs: "weakref.WeakKeyDictionary[Any, _Captured]" = weakref.WeakKeyDictionary()
+        self.step = step or (lambda params, cache, tok, pos:
+                             api.decode_step(cfg, params, cache, tok, pos))
+        self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, _Captured]]" = (
+            weakref.WeakKeyDictionary())
+
+    def graphs(self, params) -> Dict[tuple, _Captured]:
+        return self._graphs.setdefault(params, {})
 
     def __call__(self, params, cache, tok, pos):
         inputs = {"cache": cache, "tok": tok, "pos": pos}
-        cap = self._graphs.get(params)
+        graphs = self.graphs(params)
+        key = tuple((tuple(t.shape), t.dtype) for t in _leaves({"cache": cache, "tok": tok}))
+        cap = graphs.get(key)
         if cap is None:
-            cfg = self.cfg
+            eager = self.step
 
             def step(s):
-                return {"logits": api.decode_step(cfg, params, s["cache"], s["tok"],
-                                                  s["pos"])[0]}
+                return {"logits": eager(params, s["cache"], s["tok"], s["pos"])[0]}
 
-            pos0 = torch.zeros((), dtype=torch.int64, device=self.dev)
-            cap, out = _capture(step, inputs, self.dev, like={**inputs, "pos": pos0})
-            self._graphs[params] = cap
+            like = inputs
+            if not isinstance(pos, torch.Tensor):
+                like = {**inputs, "pos": torch.zeros((), dtype=torch.int64, device=self.dev)}
+            cap, out = _capture(step, inputs, self.dev, like=like)
+            graphs[key] = cap
             TRACE_COUNT["decode"] += 1
             logits = out["logits"]
         else:
@@ -294,11 +322,14 @@ class _GraphedPrefill:
     when the model does. A shape's first call captures (:func:`_capture`)
     and returns the warm-up's result; later calls copy their inputs into
     the graph's and replay it, and each hands back clones of the logits and
-    of every cache leaf (a None leaf stays None). ``graphs(params)``: {input
-    key: :class:`_Captured`} of a model, for the captures' stats."""
+    of every cache leaf (a None leaf stays None). ``step(params, inputs) ->
+    (logits, cache)``, the eager step it captures, defaults to
+    ``api.prefill`` padding the cache to ``max_seq``. ``graphs(params)``:
+    {input key: :class:`_Captured`} of a model, for the captures' stats."""
 
-    def __init__(self, cfg, dev: torch.device, max_seq: int):
+    def __init__(self, cfg, dev: torch.device, max_seq: int, step=None):
         self.cfg, self.dev, self.max_seq = cfg, dev, max_seq
+        self.step = step or (lambda params, inputs: api.prefill(cfg, params, inputs, max_seq))
         self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, _Captured]]" = (
             weakref.WeakKeyDictionary())
 
@@ -310,10 +341,10 @@ class _GraphedPrefill:
         key = _input_key(inputs)
         cap = graphs.get(key)
         if cap is None:
-            cfg, max_seq = self.cfg, self.max_seq
+            eager = self.step
 
             def step(s):
-                logits, cache = api.prefill(cfg, params, s, max_seq)
+                logits, cache = eager(params, s)
                 return {"logits": logits, "cache": cache}
 
             cap, out = _capture(step, inputs, self.dev)

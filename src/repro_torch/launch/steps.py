@@ -12,6 +12,28 @@ cache; the train module, masters and moments). The counterpart of
 :meth:`CellSpec.materialize` makes real arguments on the cell's device from
 a seed, to run one step (:meth:`CellSpec.run`).
 
+**The compiled step.** ``repro``'s ``CellSpec.jitted()`` is ``jax.jit``
+with the cell's shardings and ``donate_argnums``. Here :meth:`CellSpec.run`
+on a card is the replay of one CUDA graph per (cell, model, input shapes)
+(:meth:`CellSpec.replay`) through the serving and training graphs,
+``serve._GraphedPrefill``, ``serve._GraphedDecode`` and
+``train._GraphedTrainStep``, each capturing the cell's own eager step
+(:meth:`CellSpec.run_eager`) with ``serve._capture`` and keeping its graphs
+in a ``WeakKeyDictionary`` on the model, so that they go when the model
+does. The static inputs are the prefill's batch and the decode's cache,
+token and 0-d position; the decode graph updates its own cache in place,
+which each call's cache is copied into and back out of, so that the
+caller's cache is updated in place as the eager step updates it (one
+graph serves any number of caches). The train graph's static input is
+the batch; the module and the train state are closed over and updated
+in place, and a call whose state holds other tensors than at the capture
+raises. A shape's first call runs the eager step on a side stream, whose
+result it returns, then captures; ``serve.TRACE_COUNT`` (train:
+``train.TRACE_COUNT["step"]``) counts captures. A failed capture raises:
+nothing falls back to the eager step, which stays reachable as
+:meth:`CellSpec.run_eager`, the reference of the bitwise checks. On the
+CPU :meth:`CellSpec.run` is the eager step.
+
 The train step is ``launch/train.py::train_step``; prefill and decode are
 ``api.prefill`` and ``api.decode_step`` on ``KERNELS``.
 
@@ -22,19 +44,21 @@ and AdamW's moments by ``api.param_logical``, the inputs along the batch
 (``_batch_sharding``), the decode cache by ``api.cache_logical``; the step
 returns the logits laid out as ("batch", None, "vocab") and the cache by
 its logical axes. The step runs under ``implicit_replication`` (a plain
-tensor made inside it counts as replicated), through
+tensor made inside it counts as replicated; ``sharding.mesh_scope``), through
 ``sharding.sharded(kernels, rules)``: every kernel on each device's block,
 the layout constraints at ``repro``'s sites (``make_constrain``).
 :attr:`CellSpec.placements` keeps each argument's and output's
 placements. Counted on ``meta`` under a fake process group
 (``mesh.count_mesh``), the step's numbers are per device; materialized
-on cards (``mesh.make_host_mesh``), each process holds its blocks.
-Without a mesh nothing of this runs.
+on cards (``mesh.make_host_mesh``), each process holds its blocks. On a
+card a sharded cell is a graph too: its static inputs are DTensors, each
+call's inputs are copied into each device's block, and a replay runs the
+local kernels and the NCCL collectives the capture recorded. Without a
+mesh nothing of this runs.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -45,11 +69,12 @@ from ..device import resolve_device
 from ..models import api
 from ..models.common import COUNTED, KERNELS, PLAIN, Kernels
 from ..models.sharding import (Rules, constrain, distribute, is_dtensor, logical_to_spec,
-                               make_constrain, placements, rules_for, sharded,
+                               make_constrain, mesh_scope, placements, rules_for, sharded,
                                shardings_for_tree)
 from ..optim.adamw import AdamWConfig, adamw_init
+from . import serve
 from .roofline import OpStats, count_step
-from .train import stand_ins, train_step
+from .train import _GraphedTrainStep, stand_ins, train_step
 
 __all__ = ["CellSpec", "build_cell", "make_constrain", "shard_batch", "LOGITS_LOGICAL"]
 
@@ -81,6 +106,7 @@ class CellSpec:
     alias: Tuple[int, ...] = ()
     mesh: Any = None
     placements: Optional[Dict[str, Any]] = None
+    _graph: Any = dataclasses.field(default=None, init=False, repr=False, compare=False)
 
     def _kernels(self, kernels: Kernels) -> Kernels:
         if self.mesh is None:
@@ -88,11 +114,7 @@ class CellSpec:
         return sharded(kernels, rules_for(self.cfg.family))
 
     def _scope(self):
-        if self.mesh is None:
-            return contextlib.nullcontext()
-        from torch.distributed.tensor.experimental import implicit_replication
-
-        return implicit_replication()
+        return mesh_scope(self.mesh)
 
     def count(self) -> Tuple[Any, OpStats]:
         """(the step's outputs on ``meta``, what it dispatched; per device
@@ -138,10 +160,57 @@ class CellSpec:
         return _lay_out(self.cfg, self.shape, self.mesh, tuple(args))
 
     def run(self, args) -> Any:
-        """One step on materialized ``args`` with the card's kernels."""
+        """One step on materialized ``args`` with the card's kernels, the
+        counterpart of ``repro``'s ``CellSpec.jitted()``: on a card the
+        replay of the cell's CUDA graph (:meth:`replay`), on the CPU the
+        eager step (:meth:`run_eager`)."""
+        if self.device.type == "cuda":
+            return self.replay(args)
+        return self.run_eager(args)
+
+    def run_eager(self, args) -> Any:
+        """One eager step on ``args``: the reference the graphed step is
+        held to."""
         kernels = self._kernels(KERNELS)
         with self._scope():
             return self.fn(*args, kernels=kernels)
+
+    def _graphed(self):
+        """The cell's graphed step, made on first use: the serving or the
+        training graph of :meth:`run_eager`."""
+        if self._graph is None:
+            cfg, dev, kind = self.cfg, self.device, self.shape.kind
+
+            def eager(*args):
+                return self.run_eager(args)
+
+            if kind == "train":
+                self._graph = _GraphedTrainStep(cfg, None, dev, step=eager)
+            elif kind == "prefill":
+                self._graph = serve._GraphedPrefill(cfg, dev, None, step=eager)
+            else:
+                self._graph = serve._GraphedDecode(cfg, dev, True, step=eager)
+        return self._graph
+
+    def graphs(self, model) -> Dict[tuple, "serve._Captured"]:
+        """{key: the captured step} of ``model`` in this cell, for the
+        captures' stats."""
+        return self._graphed().graphs(model)
+
+    def replay(self, args) -> Any:
+        """The step as one CUDA graph per (model, input shapes) (module
+        docstring): a shape's first call captures and returns the warm-up's
+        result; later calls copy their inputs in and replay. Returns what
+        the eager step returns: the prefill's logits and cache (clones),
+        the decode's logits (a clone) and the caller's cache, updated in
+        place, the train step's loss (a clone)."""
+        graph = self._graphed()
+        if self.shape.kind != "decode":
+            return graph(*args)
+        cache = args[1]
+        logits, own = graph(*args)
+        serve._feed(cache, own, "cache")  # back into the caller's cache
+        return logits, cache
 
 
 def _tensors(tree, make: Callable, dev):

@@ -33,10 +33,14 @@ on a card and builds of the eager step on the CPU, as the serve module's
 **Sharded training.** ``train(..., mesh=...)`` lays the module, the float32
 masters, AdamW's moments and each batch out over a device mesh as
 ``launch/steps.py``'s sharded cells do (``api.param_logical``, the batch
-along "batch") and runs each step eagerly under ``implicit_replication``
-through ``sharding.sharded(PLAIN, rules)``: no CUDA graph
-(NCCL under capture is not ported). A checkpoint gathers the state whole
-and process 0 writes it; a resumed run lays the restored state out again.
+along "batch") and runs each step under ``implicit_replication`` through
+``sharding.sharded(PLAIN, rules)``: on a card as a replay of one CUDA graph
+per (model, train state, batch shapes) on that mesh, a
+:class:`_GraphedTrainStep` whose static inputs are DTensors and whose
+graph holds the step's NCCL collectives (the counterpart of ``repro``'s
+jitted, donated step under the mesh); on the CPU eagerly. Each step returns
+the loss whole. A checkpoint gathers the state whole and process 0 writes
+it; a resumed run lays the restored state out again.
 ``--production-mesh`` (``--multi-pod`` for two pods) builds ``repro``'s
 production mesh over the processes ``torchrun`` launched (``RANK``,
 ``WORLD_SIZE``; the group starts from a ``FileStore`` beside the
@@ -71,7 +75,7 @@ from ..device import resolve_device
 from ..models import api
 from ..configs.base import ShapeConfig
 from ..models.common import PLAIN, Kernels
-from ..models.sharding import is_dtensor, rules_for, sharded
+from ..models.sharding import is_dtensor, mesh_scope, rules_for, sharded
 from ..obs.metrics import METRICS
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from . import serve
@@ -123,7 +127,11 @@ def train_step(cfg, model, state, adamw: AdamWConfig,
 class _GraphedTrainStep:
     """:func:`train_step` on a card as one CUDA graph per (model, train
     state, batch input shapes): ``step(model, state, batch)`` returns the
-    step's loss, a 0-d float32 tensor.
+    step's loss, a 0-d float32 tensor. ``step``, the eager step it
+    captures (``step(model, state, batch) -> loss``), defaults to
+    :func:`train_step` with ``adamw``; a sharded one (the model, state and
+    batch DTensors on a mesh, the loss a replicated DTensor) has its NCCL
+    collectives recorded into the graph.
 
     The graphs live in a ``WeakKeyDictionary`` on the model, keyed inside by
     the state and :func:`serve._input_key` of the batch (int64 tokens and
@@ -140,8 +148,10 @@ class _GraphedTrainStep:
     ``graphs(model)``: {key: :class:`serve._Captured`}, for the captures'
     stats."""
 
-    def __init__(self, cfg, adamw: AdamWConfig, dev: torch.device):
-        self.cfg, self.adamw, self.dev = cfg, adamw, dev
+    def __init__(self, cfg, adamw: AdamWConfig, dev: torch.device, step=None):
+        self.dev = dev
+        self.step = step or (lambda model, state, batch:
+                             train_step(cfg, model, state, adamw, batch))
         self._graphs: "weakref.WeakKeyDictionary[Any, Dict[tuple, Any]]" = (
             weakref.WeakKeyDictionary())
 
@@ -153,10 +163,10 @@ class _GraphedTrainStep:
         key = (id(state),) + serve._input_key(batch)
         cap = graphs.get(key)
         if cap is None:
-            cfg, adamw = self.cfg, self.adamw
+            eager = self.step
 
             def step(s):
-                loss = train_step(cfg, model, state, adamw, s)
+                loss = eager(model, state, s)
                 model.zero_grad(set_to_none=True)
                 return {"loss": loss}
 
@@ -184,6 +194,33 @@ def _step_fn(cfg, adamw: AdamWConfig, dev: torch.device):
     return lambda model, state, batch: train_step(cfg, model, state, adamw, batch)
 
 
+def _sharded_step_fn(cfg, adamw: AdamWConfig, mesh, dev: torch.device):
+    """:func:`train`'s ``step`` on a mesh, and its :class:`_GraphedTrainStep`
+    (None on the CPU): the batch laid out along "batch", then the sharded
+    :func:`train_step` (``sharding.sharded(PLAIN, rules)`` under
+    ``implicit_replication``), on a card the graph's replay, on the CPU
+    eager (a build, counted in ``TRACE_COUNT``); each step returns the
+    loss, whole."""
+    from .steps import shard_batch
+
+    kernels = sharded(PLAIN, rules_for(cfg.family))
+
+    def eager(model, state, batch):
+        with mesh_scope(mesh):
+            return train_step(cfg, model, state, adamw, batch, kernels=kernels)
+
+    if dev.type == "cuda":
+        graphed = run = _GraphedTrainStep(cfg, adamw, dev, step=eager)
+    else:
+        graphed, run = None, eager
+        TRACE_COUNT["step"] += 1
+
+    def step(model, state, batch):
+        loss = run(model, state, shard_batch(cfg, batch, mesh))
+        return loss.full_tensor() if is_dtensor(loss) else loss
+    return step, graphed
+
+
 def _on_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _on_device(v, dev) for k, v in tree.items()}
@@ -195,24 +232,6 @@ def _gathered(tree):
     if isinstance(tree, dict):
         return {k: _gathered(v) for k, v in tree.items()}
     return tree.full_tensor() if is_dtensor(tree) else tree
-
-
-def _sharded_step_fn(cfg, adamw: AdamWConfig, mesh):
-    """:func:`train`'s ``step`` on a mesh: the batch laid out, then one
-    eager sharded :func:`train_step`; returns the loss, whole."""
-    from torch.distributed.tensor.experimental import implicit_replication
-
-    from .steps import shard_batch
-
-    kernels = sharded(PLAIN, rules_for(cfg.family))
-    TRACE_COUNT["step"] += 1
-
-    def step(model, state, batch):
-        with implicit_replication():
-            loss = train_step(cfg, model, state, adamw, shard_batch(cfg, batch, mesh),
-                              kernels=kernels)
-        return loss.full_tensor() if is_dtensor(loss) else loss
-    return step
 
 
 def production_mesh_of_launch(multi_pod: bool, ckpt_dir: str, device):
@@ -277,7 +296,11 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
         lay = CellSpec(cfg, ShapeConfig("train", seq, batch, "train"), dev, None, (), mesh=mesh)
         model, state, _ = lay.shard((model, state, {}))
     extra = stand_ins(cfg, batch, dev)
-    step_fn = _step_fn(cfg, adamw, dev) if mesh is None else _sharded_step_fn(cfg, adamw, mesh)
+    if mesh is None:
+        step_fn = _step_fn(cfg, adamw, dev)
+        graphed = step_fn if isinstance(step_fn, _GraphedTrainStep) else None
+    else:
+        step_fn, graphed = _sharded_step_fn(cfg, adamw, mesh, dev)
     n_bursts = (steps + burst_steps - 1) // burst_steps
     losses = []
     for burst in range(start_burst, n_bursts):
@@ -305,8 +328,8 @@ def train(arch: str, steps: int, batch: int, seq: int, burst_steps: int, ckpt_di
             print("[train] injected crash! rerun to resume.", flush=True)
             sys.stderr.flush()
             os._exit(1)
-    if isinstance(step_fn, _GraphedTrainStep):
-        report["captures"] = [cap.stats for cap in step_fn.graphs(model).values()]
+    if graphed is not None:
+        report["captures"] = [cap.stats for cap in graphed.graphs(model).values()]
     if losses:
         print(f"[train] done: first loss {losses[0]:.4f} → last {losses[-1]:.4f}")
     return losses

@@ -55,6 +55,7 @@ spec of either table names its axes in the mesh's order already.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -214,6 +215,17 @@ def is_dtensor(x) -> bool:
     """A DTensor, without importing ``torch.distributed.tensor`` for a
     plain tensor."""
     return type(x).__name__ == "DTensor" and hasattr(x, "device_mesh")
+
+
+def mesh_scope(mesh):
+    """The scope a step on ``mesh`` runs in: ``implicit_replication`` (a
+    plain tensor made inside the step counts as replicated); without a mesh
+    nothing."""
+    if mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
 
 
 def constrain(x, rules: Rules, *logical: Optional[str]):

@@ -18,6 +18,7 @@ from pathlib import Path
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import repro.core
@@ -273,3 +274,11 @@ def eager_record(step, cap, dev):
     cap.outputs = _map(torch.clone, out)
     cap.replay = lambda: _write(cap.outputs, step(cap.inputs))
     return out
+
+
+@pytest.fixture
+def eager_capture(monkeypatch):
+    """Every capture of the test made eager (:func:`eager_record`)."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(serve, "_record", eager_record)

@@ -25,9 +25,15 @@ of ``WORKDIR/inputs.pkl`` (``repro``'s, as numpy, carried across by
   and the sequence, through the sharded bundle's plain attention, causal
   and not, forward and the gradients of a seeded weighting of the output;
 
-and, when MESH is (1, 1), the same cells unsharded. Process 0 writes each
-result whole (logits, the cache, the loss, each gradient, the masters and
-moments after the step) to ``WORKDIR/out_<rows>x<cols>.pkl``.
+and, when MESH is (1, 1), the same cells unsharded; on a larger mesh, under
+"graphed", the sharded cells of qwen3-4b and granite-moe-1b-a400m as CUDA
+graphs with the capture made eager (``helpers_torch.eager_record``): the
+prefill twice (a capture, then a replay) and the decode steps through
+``CellSpec.replay``, and two train steps through ``CellSpec.replay``
+beside two through ``CellSpec.run_eager`` (each loss, then the masters and
+moments), with the captures each cell made. Process 0 writes each result
+whole (logits, the cache, the loss, each gradient, the masters and moments
+after the step) to ``WORKDIR/out_<rows>x<cols>.pkl``.
 """
 
 import contextlib
@@ -105,6 +111,64 @@ def main(rank, world, rows, cols, workdir):
                 "masters": whole(targs[1]["params"]),
                 "m": whole(targs[1]["opt_state"]["m"]), "v": whole(targs[1]["opt_state"]["v"])}
 
+    def captures(model, *cells):
+        return [len(cell.graphs(model)) for cell in cells]
+
+    def serve_graphed(arch, params, m):
+        cfg = SMOKE_CONFIGS[arch]
+        tokens = torch.from_numpy(inp["tokens"])
+        b, s = tokens.shape
+        max_seq = inp["max_seq"]
+        model = api.params_from_numpy(cfg, inp[params], "cpu")
+        prefill = build_cell(cfg, ShapeConfig("p", s, b, "prefill"), "cpu", mesh=m,
+                             max_seq=max_seq)
+        args = prefill.shard((model, {"tokens": tokens}))
+        prefill.replay(args)
+        logits, cache = prefill.replay(args)
+        steps = [whole(logits)]
+        dec = build_cell(cfg, ShapeConfig("d", max_seq, b, "decode"), "cpu", mesh=m)
+        for j in range(inp["decode_tokens"].shape[1]):
+            tok = shard_batch(cfg, {"t": torch.from_numpy(
+                inp["decode_tokens"][:, j:j + 1].copy())}, m)["t"]
+            lg, cache = dec.replay((args[0], cache, tok, torch.tensor(s + j)))
+            steps.append(whole(lg))
+        return {"logits": steps, "cache": whole(cache),
+                "captures": captures(args[0], prefill, dec)}
+
+    def train_steps(arch, params, m, batch, graphed):
+        tcfg = SMOKE_CONFIGS[arch]
+        tb = {"tokens": torch.from_numpy(inp[f"{batch}_tokens"]),
+              "labels": torch.from_numpy(inp[f"{batch}_labels"])}
+        tmodel, masters = api.trainable_from_numpy(tcfg, inp[params], "cpu")
+        bt, st = tb["tokens"].shape
+        tcell = build_cell(tcfg, ShapeConfig("t", st, bt, "train"), "cpu", mesh=m)
+        targs = tcell.shard((tmodel, {"params": masters, "opt_state": adamw_init(masters)},
+                             tb))
+        run = tcell.replay if graphed else tcell.run_eager
+        return {"loss": [whole(run(targs)) for _ in range(2)],
+                "masters": whole(targs[1]["params"]),
+                "m": whole(targs[1]["opt_state"]["m"]), "v": whole(targs[1]["opt_state"]["v"]),
+                "captures": captures(targs[0], tcell)}
+
+    def graphed(m):
+        from helpers_torch import eager_record
+
+        from repro_torch.launch import serve as serve_mod
+
+        record, serve_mod._record = serve_mod._record, eager_record
+        try:
+            out = {}
+            for arch, params, train_params, batch in (
+                    ("qwen3-4b", "qwen_params", "tiny_params", "train"),
+                    ("granite-moe-1b-a400m", "moe_params", "moe_train_params", "moe_train")):
+                tarch = "tinyllama-1.1b" if arch == "qwen3-4b" else arch
+                out[arch] = {"serving": serve_graphed(arch, params, m),
+                             "train": train_steps(tarch, train_params, m, batch, True),
+                             "train_eager": train_steps(tarch, train_params, m, batch, False)}
+            return out
+        finally:
+            serve_mod._record = record
+
     def attention(m):
         from torch.distributed.tensor import Shard, distribute_tensor
 
@@ -138,6 +202,8 @@ def main(rank, world, rows, cols, workdir):
         out[label]["attention"] = attention(m)
         for arch in ("xlstm-1.3b", "zamba2-7b"):  # B 2: "model" left to the cells' heads
             out[label][arch] = serve(arch, arch + "_params", m, rows=2)
+    if rows * cols > 1:
+        out["graphed"] = graphed(mesh)
     if rank == 0:
         with open(os.path.join(workdir, f"out_{rows}x{cols}.pkl"), "wb") as fh:
             pickle.dump(out, fh)

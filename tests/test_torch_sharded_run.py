@@ -30,6 +30,12 @@ the port's own unsharded cells.
   control.
 * one process on a (1, 1) mesh: the sharded cells' logits, cache, loss,
   gradients, masters and moments bitwise the unsharded cells'.
+* the sharded cells as CUDA graphs on the (2, 2) mesh, the capture made
+  eager (``CellSpec.replay``; the DTensor inputs fed into each process's
+  blocks): qwen3-4b's and granite-moe's prefill (a replay) and decode steps
+  bitwise the eager sharded ones above, and two graphed train steps of
+  tinyllama-1.1b and granite-moe bitwise two eager ones (losses, masters,
+  m, v); one capture per graphed cell, none eager.
 """
 
 import os
@@ -257,3 +263,22 @@ def test_one_process_mesh_is_bitwise_the_unsharded_cells(tmp_path):
             assert np.array_equal(x, y), arch
         for (path, x), (_, y) in zip(_leaves(a["cache"]), _leaves(b["cache"])):
             assert np.array_equal(x, y), (arch, path)
+
+
+@pytest.mark.parametrize("part", ["serving", "train"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", MOE])
+def test_graphed_sharded_cells_equal_the_eager_ones_on_four_processes(four, arch, part):
+    _, out = four
+    got = out["graphed"][arch][part]
+    if part == "serving":
+        want = out["sharded"] if arch == "qwen3-4b" else out["sharded"]["moe"]
+        assert len(got["logits"]) == len(want["logits"]) == 1 + N_DECODE
+    else:
+        want = out["graphed"][arch]["train_eager"]
+        assert want["captures"] == [0]
+    assert got["captures"] == ([1, 1] if part == "serving" else [1])
+    parts = [k for k in got if k != "captures"]
+    a, b = _leaves({k: got[k] for k in parts}), _leaves({k: want[k] for k in parts})
+    assert [p for p, _ in a] == [p for p, _ in b] and len(a) > 2
+    for (path, x), (_, y) in zip(a, b):
+        assert np.array_equal(x, y), (arch, part, path)

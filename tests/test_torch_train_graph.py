@@ -28,7 +28,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers_torch import eager_record, three_steps_against_reference
+from helpers_torch import eager_capture, three_steps_against_reference  # noqa: F401
 
 from repro_torch.configs import ALL_ARCHS, SMOKE_CONFIGS
 from repro_torch.data.synthetic import SyntheticConfig, SyntheticData
@@ -40,11 +40,6 @@ from repro_torch.optim import adamw
 CPU = torch.device("cpu")
 ADAMW = adamw.AdamWConfig(lr=1e-3, warmup_steps=2)
 BATCH, SEQ = 2, 16
-
-
-@pytest.fixture
-def eager_capture(monkeypatch):
-    monkeypatch.setattr(serve_mod, "_record", eager_record)
 
 
 def _fresh(cfg, seq=SEQ):
